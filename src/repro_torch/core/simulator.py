@@ -1,0 +1,771 @@
+"""Event-driven AFL simulator with a simulated wall clock (paper Sec 4.3).
+
+PyTorch port of `repro.core.simulator`, sequential engine. Real training
+on a torch device, simulated time: each device runs its k_i local
+momentum-SGD steps — one `fused_momentum` launch per step, in place on a
+flat fp32 parameter buffer whose views are the model's parameters —
+compresses the pseudo-gradient (Eq. 4) with its δ_i, and "uploads": the
+upload lands on the simulated clock at  t + k_i·α_i + rate_i·β_i  (Eq. 5).
+The server strategy decides when aggregation happens (periodic / buffered
+/ async / sync) and the simulator hands fresh global models back to
+devices.
+
+Engines: only engine="sequential" is ported — one Python cycle per start
+event, one dense host pull per arrival, EF residuals kept on the device
+per device id. The reference's batched engine is bitwise equal to its
+sequential one, so the port's event timeline, staleness, wire bits and
+fault counters are identical to either; engine="batched" raises until it
+is ported (ROADMAP.md, queue 1, item 6).
+
+Everything host-side is the reference's code: the event heap, the fault
+models (crash windows, lossy channel with retries, drift, corruption),
+the sanitizer, controller re-plans, the three `wire_accounting` modes
+(payload / strict / analytic) and the tracer, metrics and timer seams.
+The host RNG is consumed in the reference's order — one `self.rng.randint`
+per cycle even when the compressor ignores the key — so the same seed
+gives the same timeline.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import heapq
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import compression as C
+from repro_torch.core.aggregation import (Arrival, GlobalModel,
+                                          PeriodicAggregator, SanitizerConfig,
+                                          SparseUpdate, SyncAggregator,
+                                          UpdateSanitizer, make_aggregator)
+from repro_torch.core import factor
+from repro_torch.core.controller import DeviceProfile, FedLuckController
+from repro_torch.core.factor import Plan
+from repro_torch.kernels import ops
+from repro_torch.obs import profiling as _prof
+from repro_torch.obs.metrics import STALENESS_BUCKETS
+from repro_torch.obs.profiling import PhaseTimers
+from repro_torch.obs.trace import CONTROLLER_TRACK, SERVER_TRACK, device_track
+
+# shared no-op phase context for the uninstrumented (timers=None) path
+_NULL_PHASE = contextlib.nullcontext()
+
+# fixed metric bucket grids (no Date/random in hot paths — pure constants)
+_SIZE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+_DENSITY_BUCKETS = (0.01, 0.02, 0.05, 0.1, 0.2, 0.5, 1.0)
+
+
+# ----------------------------------------------------------------------- task
+@dataclasses.dataclass
+class TrainTask:
+    """A trainable model + data, in plain-function form. Parameters are one
+    flat fp32 vector; `spec` maps it to the model's nested dict of views
+    (`compression.unflatten_pytree`)."""
+    name: str
+    init_fn: Callable[[torch.Generator], torch.Tensor]  # gen -> flat [d]
+    loss_fn: Callable[[Any, dict], torch.Tensor]     # (params, batch) -> scalar
+    acc_fn: Callable[[Any, dict], torch.Tensor]      # (params, batch) -> scalar
+    dataset: Any                                     # train split (numpy)
+    test_batch: dict                                 # held-out eval batch
+    spec: list                                       # [(path, shape)]
+    batch_size: int = 64
+
+    @property
+    def dim(self) -> int:
+        return int(sum(int(np.prod(s)) if s else 1 for _, s in self.spec))
+
+
+@dataclasses.dataclass
+class DeviceSpec:
+    """Static per-device simulation knobs."""
+    profile: DeviceProfile
+    plan: Plan
+    compressor: str = "topk"      # topk | randk | qsgd | signsgd | none
+    error_feedback: bool = False
+    compressor_kwargs: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def rate(self) -> float:
+        """Effective wire rate (fraction of a full fp32 gradient)."""
+        if self.compressor in ("topk", "topk_threshold", "randk"):
+            return self.plan.delta
+        if self.compressor == "qsgd":
+            # (log2(levels) + sign) bits per coordinate over fp32
+            levels = int(self.compressor_kwargs.get("levels", 256))
+            return (math.log2(levels) + 1.0) / 32.0
+        if self.compressor == "signsgd":
+            return 1.0 / 32.0
+        return 1.0
+
+    def _ckw_key(self) -> tuple:
+        return tuple(sorted(self.compressor_kwargs.items()))
+
+
+@dataclasses.dataclass
+class Record:
+    time: float
+    round: int
+    accuracy: float
+    loss: float
+    gbits: float
+    mean_staleness: float
+    drops: int = 0      # cumulative lost/dropped/sanitized updates so far
+    # per-eval-window fault deltas: {counter: change since the previous
+    # eval}, zero entries omitted — makes drops/retries/re-plans
+    # attributable to a window (`drops` above stays cumulative for
+    # back-compat). With metrics attached, also carries the window's
+    # staleness bucket counts under "staleness_counts".
+    window: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class History:
+    records: list[Record] = dataclasses.field(default_factory=list)
+    # final fault/resilience counters (crash losses, channel retries/drops,
+    # sanitizer rejections, controller re-plans) — see
+    # AFLSimulator.fault_counters
+    counters: dict = dataclasses.field(default_factory=dict)
+
+    def time_to_accuracy(self, target: float) -> float | None:
+        for r in self.records:
+            if r.accuracy >= target:
+                return r.time
+        return None
+
+    def bits_to_accuracy(self, target: float) -> float | None:
+        for r in self.records:
+            if r.accuracy >= target:
+                return r.gbits
+        return None
+
+    def final_accuracy(self, window: int = 3) -> float:
+        if not self.records:
+            return 0.0
+        return float(np.mean([r.accuracy for r in self.records[-window:]]))
+
+
+# ------------------------------------------------------------------ simulator
+class AFLSimulator:
+    def __init__(self, task: TrainTask, devices: list[DeviceSpec],
+                 strategy: str = "periodic", *, round_period: float = 1.0,
+                 eta_l: float = 0.05, eta_g: float = 1.0,
+                 momentum: float = 0.9, seed: int = 0,
+                 client_indices: list[np.ndarray] | None = None,
+                 failure_schedule=None, channel=None, stragglers=None,
+                 controller: FedLuckController | None = None,
+                 sanitizer=None, count_index_bits: bool = False,
+                 wire_accounting: str = "payload",
+                 strategy_kwargs: dict | None = None,
+                 engine: str = "sequential", tracer=None, metrics=None,
+                 timers=None, device: str | torch.device = "cuda"):
+        if engine == "batched":
+            raise NotImplementedError(
+                "engine='batched' is not ported yet (ROADMAP.md, queue 1, "
+                "item 6: batched engine); use engine='sequential'")
+        if engine != "sequential":
+            raise ValueError(f"unknown engine {engine}")
+        if wire_accounting not in ("payload", "strict", "analytic"):
+            raise ValueError(f"unknown wire_accounting {wire_accounting!r}")
+        self.device = resolve_device(device)
+        self.task = task
+        self.devices = {d.profile.device_id: d for d in devices}
+        self.round_period = float(round_period)
+        self.eta_l, self.eta_g, self.momentum = eta_l, eta_g, momentum
+        # ---- fault models (all optional): see repro.core.simulator
+        self.failure_schedule = failure_schedule
+        self.channel = channel
+        self._stragglers = list(stragglers or [])
+        self.controller = controller
+        self._crash_lost = 0
+        # ---- observability, all optional and host-side only; emission
+        # happens at the reference's seams, so both packages record the
+        # same event lists on the same run
+        self._tracer = tracer
+        self._metrics = metrics
+        self._timers = timers if timers is not None else (
+            PhaseTimers() if metrics is not None else None)
+        self._last_counters: dict = {}
+        if tracer is not None and channel is not None:
+            channel.trace_attempts = True
+        self.count_index_bits = count_index_bits
+        self._wire_mode = "strict" if count_index_bits else wire_accounting
+        self.strategy_name = strategy
+        self.rng = np.random.RandomState(seed)
+        self.engine = engine
+        self.events_processed = 0
+
+        # ---- params / flat spec
+        flat = task.init_fn(torch.Generator().manual_seed(seed))
+        self.spec = task.spec
+        self.dim = int(flat.shape[0])
+        if self.dim != task.dim:
+            raise ValueError(f"init_fn gave {self.dim} parameters, the "
+                             f"task's spec has {task.dim}")
+        self.model = GlobalModel(
+            flat.detach().to("cpu", torch.float32).numpy(), eta_g=eta_g)
+        skw = dict(strategy_kwargs or {})
+        if strategy in ("sync", "fedavg", "fedavg_topk"):
+            skw.setdefault("num_devices", len(devices))
+        self.agg = make_aggregator(strategy, self.model, **skw)
+        if sanitizer is not None:
+            if isinstance(sanitizer, SanitizerConfig):
+                sanitizer = UpdateSanitizer(sanitizer)
+            self.agg.sanitizer = sanitizer
+
+        # ---- per-client data (numpy streams, seeded as in the reference)
+        from repro_torch.data.pipeline import DataLoader
+        n = len(task.dataset)
+        if client_indices is None:
+            from repro_torch.data.partition import iid_partition
+            client_indices = iid_partition(n, len(devices), seed=seed)
+        self.loaders = {
+            did: DataLoader(task.dataset, idx, batch_size=task.batch_size,
+                            seed=seed + 17 * did)
+            for did, idx in zip(sorted(self.devices), client_indices)}
+
+        self._dids = sorted(self.devices)
+        # ---- EF residuals: one device tensor per device id
+        self._residuals: dict[int, torch.Tensor] = {
+            did: torch.zeros((self.dim,), dtype=torch.float32,
+                             device=self.device)
+            for did in self._dids}
+        self._compress_fns: dict[tuple, C.Compressor] = {}
+        self._test_batch = self._to_device(task.test_batch)
+        self._stal_ptr = 0   # staleness_log watermark for per-eval windows
+
+    def _phase(self, name: str):
+        """Wall-clock phase context (obs.PhaseTimers) or a shared no-op."""
+        tm = self._timers
+        return tm.phase(name) if tm is not None else _NULL_PHASE
+
+    def _trace_down(self, did: int, t: float, recovery: float) -> None:
+        """Device found down at cycle start: its outage window as a span."""
+        tr = self._tracer
+        if tr is not None:
+            tr.span(device_track(did), "down", t, recovery)
+        if self._metrics is not None:
+            self._metrics.counter("sim.down_starts").inc()
+
+    def _trace_agg_events(self, events) -> None:
+        tr, m = self._tracer, self._metrics
+        for ev in events:
+            if tr is not None:
+                tr.instant(SERVER_TRACK, "aggregate", ev.time,
+                           round=ev.new_round, released=len(ev.release_to))
+            if m is not None:
+                m.counter("sim.aggregations").inc()
+
+    def _trace_cycle(self, did: int, t: float, compute_end: float,
+                     arrive, restart_at, attempts: int, corrupt: bool,
+                     crashed: bool, give_up) -> None:
+        """Spans/instants for one device cycle resolved by
+        `_schedule_upload` — called at heap-pop time, as in the reference,
+        so event order matches the reference's pop order exactly."""
+        tr = self._tracer
+        spec = self.devices[did]
+        track = device_track(did)
+        tr.span(track, "local_round", t, compute_end,
+                k=spec.plan.k, delta=spec.plan.delta)
+        if self.channel is not None and self.channel.trace_attempts:
+            for i, (s0, s1, lost) in enumerate(self.channel.last_attempts):
+                tr.span(track, "upload_retry" if i else "upload", s0, s1,
+                        attempt=i, lost=lost)
+        elif arrive is not None:
+            tr.span(track, "upload", compute_end, arrive)
+        if crashed:
+            end = arrive if arrive is not None else give_up
+            tr.instant(track, "crash_lost", min(end, restart_at),
+                       restart=restart_at)
+        elif arrive is None:
+            tr.instant(track, "channel_dropped", give_up, attempts=attempts)
+        elif corrupt:
+            tr.instant(track, "corrupted", arrive)
+
+    # ---------------------------------------------------------- device compute
+    def _to_device(self, batch: dict) -> dict:
+        """Host batch -> device tensors. Floating arrays become float32, as
+        JAX (x64 off) makes them; the synthetic images may be float64."""
+        out = {}
+        for k, v in batch.items():
+            v = np.asarray(v)
+            if np.issubdtype(v.dtype, np.floating):
+                v = v.astype(np.float32)
+            out[k] = torch.as_tensor(v).to(self.device)
+        return out
+
+    def _local_round(self, flat: torch.Tensor, batches: list[dict]
+                     ) -> torch.Tensor:
+        """flat params + k batches -> pseudo-gradient g = w0 − wk (Eq. 4).
+
+        `w` is a leaf flat fp32 tensor that requires grad; the model's
+        parameters are views of it, so `autograd.grad` returns the flat
+        gradient and each step is one in-place `fused_momentum` launch on
+        (w, mu). mu starts at zero every cycle."""
+        loss_fn, spec = self.task.loss_fn, self.spec
+        w = flat.clone().requires_grad_(True)
+        mu = torch.zeros_like(flat)
+        for batch in batches:
+            params = C.unflatten_pytree(w, spec)
+            (grad,) = torch.autograd.grad(loss_fn(params, batch), w)
+            ops.momentum_update(w.detach(), mu, grad, lr=self.eta_l,
+                                momentum=self.momentum)
+        return flat - w.detach()  # Eq. 4
+
+    def _compressor_fn(self, spec_d: DeviceSpec) -> C.Compressor:
+        key = (spec_d.compressor, float(spec_d.plan.delta),
+               spec_d._ckw_key())
+        comp = self._compress_fns.get(key)
+        if comp is None:
+            if self._metrics is not None:
+                self._metrics.counter("engine.compressor_compiles").inc()
+            comp = self._compress_fns[key] = C.make_compressor(
+                spec_d.compressor, spec_d.plan.delta,
+                **spec_d.compressor_kwargs)
+        return comp
+
+    def _device_compute(self, did: int) -> tuple[np.ndarray, float]:
+        """One local round + compression against the current global model.
+        Always runs — even when the upload is already known to be lost —
+        so the loader, host RNG, and EF residual advance exactly as in the
+        reference."""
+        spec = self.devices[did]
+        k = spec.plan.k
+        loader = self.loaders[did]
+        batches = [self._to_device(loader.next()) for _ in range(k)]
+        flat = torch.tensor(self.model.w, device=self.device)
+        with _prof.annotate("sim.local_round"):
+            g = self._local_round(flat, batches)
+
+        seed = self.rng.randint(0, 2 ** 31 - 1)   # consumed every cycle
+        comp = self._compressor_fn(spec)
+        gen = (torch.Generator(device=self.device).manual_seed(int(seed))
+               if comp.needs_key else None)
+        with _prof.annotate("sim.compress"):
+            if spec.error_feedback:
+                cc, self._residuals[did] = C.ef_compress(
+                    comp, g, self._residuals[did], gen)
+            else:
+                cc = comp(g, gen)
+            dense = cc.dense().to("cpu").numpy()
+        return dense, cc.wire_bits
+
+    # ------------------------------------------------------------- residual IO
+    def residual_snapshot(self) -> tuple[np.ndarray, np.ndarray]:
+        """(device_ids, stacked [N, d] residuals) — checkpoint payload."""
+        ids = np.asarray(self._dids, np.int64)
+        stack = (torch.stack([self._residuals[d] for d in self._dids])
+                 .to("cpu").numpy() if self._dids
+                 else np.zeros((0, self.dim), np.float32))
+        return ids, stack
+
+    def load_residuals(self, ids: np.ndarray, stacked: np.ndarray) -> None:
+        """Restore per-device EF residuals from a checkpoint payload."""
+        for i, did in enumerate(np.asarray(ids).tolist()):
+            self._residuals[int(did)] = torch.as_tensor(
+                np.asarray(stacked[i], np.float32)).to(self.device)
+
+    def _alpha_mult(self, did: int, t: float) -> float:
+        """Straggler-drift α multiplier active for a device at time t."""
+        m = 1.0
+        for s in self._stragglers:
+            if s.device_id == did and s.start <= t:
+                m *= s.alpha_multiplier
+        return m
+
+    def _cycle_span(self, did: int, t: float | None = None) -> float:
+        spec = self.devices[did]
+        a = spec.profile.alpha
+        if t is not None:
+            m = self._alpha_mult(did, t)
+            if m != 1.0:
+                a = a * m
+        return spec.plan.k * a + spec.rate * spec.profile.beta
+
+    # ----------------------------------------------------- fault-model helpers
+    def _maybe_replan(self, did: int, t: float) -> None:
+        """Feed observed α/β into the controller; apply a drift-triggered
+        re-plan to the device (new k/δ). Called at cycle start, as in the
+        reference, so the event timelines stay identical."""
+        if self.controller is None:
+            return
+        spec = self.devices[did]
+        beta_m = (self.channel.beta_multiplier(did, t)
+                  if self.channel is not None else 1.0)
+        obs = DeviceProfile(did, spec.profile.alpha * self._alpha_mult(did, t),
+                            spec.profile.beta * beta_m,
+                            spec.profile.bandwidth_bps)
+        plan = self.controller.update_profile(obs)
+        if plan.k == spec.plan.k and plan.delta == spec.plan.delta:
+            return
+        if self._tracer is not None:
+            self._tracer.instant(CONTROLLER_TRACK, "replan", t, device=did,
+                                 k_old=spec.plan.k, k_new=plan.k,
+                                 delta_old=spec.plan.delta,
+                                 delta_new=plan.delta)
+        if self._metrics is not None:
+            self._metrics.counter("sim.replans").inc()
+        spec.plan = plan
+
+    def _schedule_upload(self, did: int, t: float
+                         ) -> tuple[float | None, float | None, int, bool,
+                                    bool | None]:
+        """Host-side outcome of the cycle a device starts at time t:
+        `(arrive_time, restart_at, attempts, corrupt, ch_delivered)`.
+        `arrive_time` is None when the upload never lands (crash mid-flight
+        or channel gave up after max retries) — then `restart_at` says when
+        the device begins a fresh cycle. `ch_delivered` is the channel-level
+        outcome (None without a channel) — the payload-bit charge for
+        retransmitted/dropped attempts (`LossyChannel.charge_wire`) keys off
+        it once the payload size is known. Consumes only the channel's
+        per-device RNG stream, so it is computable at heap-pop time before
+        any compute is dispatched."""
+        spec = self.devices[did]
+        corrupt = False
+        ch_delivered = None
+        compute_end = t + spec.plan.k * spec.profile.alpha \
+            * self._alpha_mult(did, t)
+        if self.channel is not None:
+            corrupt = self.channel.maybe_corrupt(did)
+            arrive, attempts, give_up = self.channel.transmit(
+                did, compute_end, spec.rate * spec.profile.beta)
+            ch_delivered = arrive is not None
+        else:
+            arrive, attempts, give_up = t + self._cycle_span(did, t), 1, None
+        in_flight_end = arrive if arrive is not None else give_up
+        crashed, restart_at = False, None
+        if self.failure_schedule is not None:
+            rec = self.failure_schedule.crash_recovery(did, t, in_flight_end)
+            if rec is not None:   # an outage opened mid-flight: upload lost
+                self._crash_lost += 1
+                crashed, restart_at = True, max(rec, t + 1e-9)
+        if not crashed and arrive is None:
+            restart_at = give_up
+        m = self._metrics
+        if m is not None:
+            m.counter("sim.cycles").inc()
+            m.counter("sim.upload_attempts").inc(attempts)
+            m.histogram("sim.local_k", _SIZE_BUCKETS).observe(spec.plan.k)
+            m.histogram("sim.compression_density",
+                        _DENSITY_BUCKETS).observe(spec.plan.delta)
+        if self._tracer is not None:
+            self._trace_cycle(did, t, compute_end, arrive, restart_at,
+                              attempts, corrupt, crashed, give_up)
+        if crashed or arrive is None:
+            return None, restart_at, attempts, corrupt, ch_delivered
+        return arrive, None, attempts, corrupt, ch_delivered
+
+    @staticmethod
+    def _poison(update):
+        """Corrupted-in-transit payload: every shipped value becomes NaN.
+        Only an aggregation-side sanitizer keeps this out of the model."""
+        if isinstance(update, SparseUpdate):
+            return SparseUpdate(np.full_like(update.values, np.nan),
+                                update.indices, update.dim, update.kept)
+        return np.full_like(np.asarray(update), np.nan)
+
+    def fault_counters(self) -> dict:
+        """Resilience telemetry: crash losses, channel attempt/retry/drop/
+        corruption counts, sanitizer rejections, controller re-plans, plus
+        the cross-category `drops_total` that `Record.drops` snapshots."""
+        c = {"crash_lost": self._crash_lost}
+        if self.channel is not None:
+            c.update(self.channel.counters)
+        san = getattr(self.agg, "sanitizer", None)
+        if san is not None:
+            c.update(san.counts)
+        if self.controller is not None:
+            c["replans"] = self.controller.replans
+        c["drops_total"] = int(c["crash_lost"] + c.get("channel_dropped", 0)
+                               + c.get("sanitized_dropped", 0))
+        return c
+
+    def _wire_bits(self, did: int, strict_bits) -> float:
+        """Bits charged for one upload. "payload" (default) charges the
+        compact wire shape — strict value/index bits plus the kept-count
+        header when the payload ships sparse (the static rule the reference
+        applies, so wire bits stay identical); "strict" drops the
+        header; "analytic" is the paper's rate·d·32 estimate."""
+        spec = self.devices[did]
+        if self._wire_mode == "analytic":
+            bits = spec.rate * self.dim * 32.0
+            if self._metrics is not None:
+                self._metrics.counter("sim.wire_payload_bits").inc(bits)
+            return bits
+        bits = float(strict_bits)
+        header = 0.0
+        if self._wire_mode == "payload" and C.sparse_wire(
+                spec.compressor, self.dim, spec.plan.delta):
+            header = float(C.HEADER_BITS)
+        if self._metrics is not None:
+            self._metrics.counter("sim.wire_payload_bits").inc(bits)
+            if header:
+                self._metrics.counter("sim.wire_header_bits").inc(header)
+        return bits + header
+
+    # -------------------------------------------------------------------- run
+    def run(self, total_rounds: int = 50, eval_every: int = 1,
+            max_sim_time: float = math.inf) -> History:
+        hist = History()
+        heap: list = []
+        seq = 0
+
+        def push(t, kind, payload):
+            nonlocal seq
+            heapq.heappush(heap, (t, seq, kind, payload))
+            seq += 1
+
+        periodic = isinstance(self.agg, PeriodicAggregator)
+        syncb = isinstance(self.agg, SyncAggregator)
+        if syncb:
+            self.agg.begin_round(0.0, list(self.devices))
+
+        # kick off every device at t=0 with the initial model
+        for did in self.devices:
+            push(0.0, "start", (did, self.model.round))
+        if periodic:
+            push(self.round_period, "boundary", 1)
+
+        evals_done = 0
+        last_t = 0.0
+        while heap:
+            t, _, kind, payload = heapq.heappop(heap)
+            if t > max_sim_time or self.model.round >= total_rounds:
+                break
+            last_t = t
+            self.events_processed += 1
+
+            if kind == "start":
+                did, mr = payload
+                if self.failure_schedule is not None and \
+                        self.failure_schedule.is_down(did, t):
+                    rec = self.failure_schedule.recovery_time(did, t)
+                    self._trace_down(did, t, rec)
+                    push(rec, "start", (did, self.model.round))
+                    continue
+                self._maybe_replan(did, t)
+                arrive, restart_at, attempts, corrupt, ch_del = \
+                    self._schedule_upload(did, t)
+                with self._phase("dispatch"):
+                    update, strict_bits = self._device_compute(did)
+                per_upload = self._wire_bits(did, strict_bits)
+                if self.channel is not None and ch_del is not None:
+                    self.channel.charge_wire(per_upload, attempts, ch_del)
+                if arrive is None:  # crashed mid-flight / channel gave up
+                    push(restart_at, "start", (did, self.model.round))
+                else:
+                    if corrupt:
+                        update = self._poison(update)
+                    push(arrive, "arrival",
+                         Arrival(did, update, mr, per_upload * attempts,
+                                 arrive))
+
+            elif kind == "arrival":
+                a: Arrival = payload
+                tr = self._tracer
+                if tr is not None:
+                    tr.instant(SERVER_TRACK, "arrival", t,
+                               device=a.device_id, round=a.model_round,
+                               bits=a.wire_bits)
+                if self._metrics is not None:
+                    self._metrics.counter("sim.arrivals").inc()
+                    self._metrics.counter("sim.wire_bits_arrived").inc(
+                        a.wire_bits)
+                san = (getattr(self.agg, "sanitizer", None)
+                       if tr is not None else None)
+                san_before = dict(san.counts) if san is not None else None
+                with self._phase("aggregate"):
+                    events = self.agg.on_arrival(t, a)
+                if san_before is not None:
+                    for cat, n in san.counts.items():
+                        for _ in range(n - san_before[cat]):
+                            tr.instant(SERVER_TRACK, cat, t,
+                                       device=a.device_id)
+                self._trace_agg_events(events)
+                for ev in events:
+                    for did in ev.release_to:
+                        push(ev.time, "start", (did, self.model.round))
+                    if syncb and ev.release_to:
+                        self.agg.begin_round(ev.time, list(self.devices))
+                if not events and not periodic and not syncb:
+                    # buffered strategy: device waits; FedBuff hands the
+                    # *current* model back immediately so training continues
+                    push(t, "start", (a.device_id, self.model.round))
+                if events and eval_every and \
+                        self.model.round >= evals_done * eval_every:
+                    self._eval(hist, t)
+                    evals_done += 1
+
+            elif kind == "boundary":
+                r = payload
+                with self._phase("aggregate"):
+                    events = self.agg.on_round_boundary(t)
+                self._trace_agg_events(events)
+                for ev in events:
+                    for did in ev.release_to:
+                        push(ev.time, "start", (did, self.model.round))
+                push(t + self.round_period, "boundary", r + 1)
+                if eval_every and self.model.round >= evals_done * eval_every:
+                    self._eval(hist, t)
+                    evals_done += 1
+
+        # closing record: the break-event time when we stopped early, else
+        # the LAST PROCESSED event time — never max_sim_time, which is inf
+        # by default and would poison History.time_to_accuracy.
+        self._eval(hist, t if heap else last_t)
+        hist.counters = self.fault_counters()
+        if self._metrics is not None:
+            # overwrite rather than re-derive: faults.* must equal
+            # History.counters EXACTLY
+            self._metrics.merge_totals("faults.", hist.counters)
+            self._metrics.gauge("sim.events_processed").set(
+                self.events_processed)
+            if self._timers is not None:
+                self._timers.export_to(self._metrics)
+        return hist
+
+    def _eval(self, hist: History, t: float):
+        with self._phase("eval"):
+            with torch.no_grad():
+                params = C.unflatten_pytree(
+                    torch.tensor(self.model.w, device=self.device), self.spec)
+                acc = self.task.acc_fn(params, self._test_batch)
+                loss = self.task.loss_fn(params, self._test_batch)
+            acc, loss = float(acc), float(loss)
+        # mean staleness over arrivals aggregated since the LAST eval: a
+        # fixed last-N slice would mix entries across aggregation rounds.
+        window = self.agg.staleness_log[self._stal_ptr:]
+        self._stal_ptr = len(self.agg.staleness_log)
+        cnt = self.fault_counters()
+        fault_window = {k: cnt[k] - self._last_counters.get(k, 0)
+                        for k in cnt if cnt[k] != self._last_counters.get(k, 0)}
+        self._last_counters = cnt
+        if self._metrics is not None:
+            h = self._metrics.histogram("sim.staleness", STALENESS_BUCKETS)
+            before = list(h.counts)
+            for s in window:
+                h.observe(s)
+            fault_window["staleness_counts"] = [
+                a - b for a, b in zip(h.counts, before)]
+        if self._tracer is not None:
+            self._tracer.instant(SERVER_TRACK, "eval", t,
+                                 round=int(self.model.round),
+                                 accuracy=acc, loss=loss)
+        hist.records.append(Record(
+            time=float(t), round=int(self.model.round),
+            accuracy=acc, loss=loss,
+            gbits=self.agg.total_bits / 1e9,
+            mean_staleness=float(np.mean(window)) if window else 0.0,
+            drops=cnt["drops_total"], window=fault_window))
+
+
+# ------------------------------------------------------------ device builders
+def make_heterogeneous_devices(
+        num: int, model_bits: float, *, base_alpha: float = 0.02,
+        alpha_spread: float = 4.0, bw_range: tuple = (0.25e6, 2e6),
+        seed: int = 0) -> list[DeviceProfile]:
+    """Paper Sec 4.3: α ~ U[a, 4a]; bandwidth ~ U[0.25, 2] Mb/s."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(num):
+        alpha = rng.uniform(base_alpha, base_alpha * alpha_spread)
+        bw = rng.uniform(*bw_range)
+        out.append(DeviceProfile.from_bandwidth(i, alpha, model_bits, bw))
+    return out
+
+
+def _snap_k(plan: Plan, p: DeviceProfile, round_period: float,
+            k_grid, k_bounds, delta_bounds,
+            fixed_delta: float | None = None) -> Plan:
+    """Snap a solver-chosen k to the nearest grid value and re-optimize δ
+    at the snapped k (or keep δ when it was fixed). Bounds the number of
+    distinct local-round lengths a fleet runs, at a tiny φ cost."""
+    lo, hi = int(k_bounds[0]), int(k_bounds[1])
+    cand = sorted({min(max(int(g), lo), hi) for g in k_grid})
+    k = min(cand, key=lambda g: (abs(g - plan.k), g))
+    if k == plan.k:
+        return plan
+    if fixed_delta is not None:
+        rt = k * p.alpha + fixed_delta * p.beta
+        return Plan(k, float(fixed_delta),
+                    float(factor.phi(k, fixed_delta, p.alpha, p.beta,
+                                     round_period)),
+                    rt, int(math.ceil(rt / round_period)))
+    return factor.solve_plan_fixed_k(p.alpha, p.beta, round_period, k,
+                                     delta_bounds=delta_bounds)
+
+
+def plan_devices(profiles: list[DeviceProfile], method: str,
+                 round_period: float, *, k_bounds=(1, 60),
+                 delta_bounds=(1e-3, 1.0), fixed_k: int = 10,
+                 fixed_delta: float = 0.1,
+                 compressor_override: str | None = None,
+                 error_feedback: bool = False,
+                 compressor_kwargs: dict | None = None,
+                 k_grid: list[int] | None = None,
+                 controller: FedLuckController | None = None
+                 ) -> list[DeviceSpec]:
+    """Build DeviceSpecs for one of the 5 methods of the paper's Sec 4.
+
+    `k_grid` (optional, methods that optimize k): snap each plan's k to the
+    nearest grid value and re-solve δ at that k — see `_snap_k`.
+    `controller` (optional, fedluck only): plan through a caller-owned
+    controller instead of a throwaway — pass the same instance to
+    `AFLSimulator(controller=...)` so mid-run drift re-plans start from the
+    profiles that planned the fleet.
+    """
+    method = method.lower()
+    ckw = dict(compressor_kwargs or {})
+    specs = []
+    if method == "fedluck":
+        ctl = controller or FedLuckController(round_period, k_bounds,
+                                              delta_bounds)
+        for p in profiles:
+            plan = ctl.register(p)
+            if k_grid:
+                plan = _snap_k(plan, p, round_period, k_grid, k_bounds,
+                               delta_bounds)
+            specs.append(DeviceSpec(p, plan, compressor_override or "topk",
+                                    error_feedback, ckw))
+    elif method == "opt_cr":   # fixed k, optimize δ (Tab. 2)
+        ctl = FedLuckController(round_period, k_bounds, delta_bounds,
+                                mode="fixed_k", fixed_k=fixed_k)
+        for p in profiles:
+            specs.append(DeviceSpec(p, ctl.register(p),
+                                    compressor_override or "topk",
+                                    error_feedback, ckw))
+    elif method == "opt_lf":   # fixed δ, optimize k (Tab. 2)
+        ctl = FedLuckController(round_period, k_bounds, delta_bounds,
+                                mode="fixed_delta", fixed_delta=fixed_delta)
+        for p in profiles:
+            plan = ctl.register(p)
+            if k_grid:
+                plan = _snap_k(plan, p, round_period, k_grid, k_bounds,
+                               delta_bounds, fixed_delta=fixed_delta)
+            specs.append(DeviceSpec(p, plan,
+                                    compressor_override or "topk",
+                                    error_feedback, ckw))
+    elif method in ("fedper", "fedavg_topk"):
+        for p in profiles:
+            plan = Plan(fixed_k, fixed_delta, 0.0,
+                        fixed_k * p.alpha + fixed_delta * p.beta, 0)
+            specs.append(DeviceSpec(p, plan, compressor_override or "topk",
+                                    error_feedback, ckw))
+    elif method in ("fedbuff", "fedasync"):   # no compression baselines
+        for p in profiles:
+            plan = Plan(fixed_k, 1.0, 0.0, fixed_k * p.alpha + p.beta, 0)
+            specs.append(DeviceSpec(p, plan, compressor_override or "none",
+                                    error_feedback, ckw))
+    else:
+        raise ValueError(f"unknown method {method}")
+    return specs
+
+
+STRATEGY_FOR_METHOD = {
+    "fedluck": "periodic", "fedper": "periodic", "opt_cr": "periodic",
+    "opt_lf": "periodic", "fedbuff": "fedbuff", "fedasync": "fedasync",
+    "fedavg_topk": "sync",
+}

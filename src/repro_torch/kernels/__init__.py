@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch versions.
+
+  fused_momentum  Triton    replaces repro/kernels/fused_momentum.py
+  ef_topk         Triton    replaces repro/kernels/ef_topk.py
+  magnitude_hist  CUDA C++  replaces repro/kernels/magnitude_hist.py
+                            (csrc/magnitude_hist.cu, built for sm_90a)
+
+Each wrapper takes its plain version (`ref.py`) only for tensors on the
+CPU; for a CUDA tensor it launches the kernel or raises. `ops.py` composes
+them into the threshold top-k pipeline.
+"""

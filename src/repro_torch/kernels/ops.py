@@ -1,0 +1,94 @@
+"""Public wrappers around the port's kernels (counterpart of
+`repro.kernels.ops`).
+
+`topk_compress` is the threshold top-k pipeline:
+
+  pass 0  gmax = max|acc|                     (torch reduction)
+  pass 1  coarse log2-bucket histogram        (magnitude_hist kernel)
+  pass 2  fine linear histogram inside bucket (magnitude_hist kernel)
+  solve   threshold t s.t. #{|acc| >= t} ~= δ·d   (tensor ops on the device)
+  pass 3  fused EF select                     (ef_topk kernel)
+
+Every step stays on the tensor's device; nothing here synchronises with
+the host. `compact_shard_topk` and `topk_compress_sparse` wait for the
+`compact_blocks` kernel (the multi-pod pod-sync slice).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ef_topk import ef_topk
+from repro_torch.kernels.fused_momentum import fused_momentum
+from repro_torch.kernels.magnitude_hist import magnitude_hist
+
+
+def _solve_threshold(counts_ge: torch.Tensor, edges: torch.Tensor, k):
+    """(lo, hi) bracket: largest edge with count >= k and the edge above
+    it. edges descending; counts_ge monotone nondecreasing."""
+    reached = counts_ge >= k
+    sel = reached.to(torch.uint8).argmax()       # first True (or 0 if none)
+    sel = torch.where(reached.any(), sel, edges.numel() - 1)
+    hi = edges[torch.clamp(sel - 1, min=0)]
+    lo = edges[sel]
+    return lo, hi
+
+
+def solve_threshold(acc: torch.Tensor, k, *, coarse_buckets: int = 48,
+                    fine_buckets: int = 128) -> torch.Tensor:
+    """Histogram-pipeline threshold t (f32 scalar tensor on acc's device)
+    with #{|acc| >= t} ≈ k: two `magnitude_hist` launches."""
+    dev = acc.device
+    gmax = acc.abs().max().to(torch.float32) + 1e-30
+    # pass 1: coarse log2 buckets (gmax·2^-j is exact)
+    j = torch.arange(coarse_buckets + 1, dtype=torch.float32, device=dev)
+    coarse_edges = gmax * torch.exp2(-j)
+    c_counts = magnitude_hist(acc, coarse_edges)
+    lo, hi = _solve_threshold(c_counts, coarse_edges, k)
+    # pass 2: fine linear buckets inside [lo, hi]; separate ops (no FMA)
+    frac = torch.arange(fine_buckets + 1, dtype=torch.float32,
+                        device=dev) / fine_buckets
+    width = hi - lo
+    fine_edges = hi - width * frac                # descending hi -> lo
+    fine_edges = torch.clamp(fine_edges, min=1e-30)
+    f_counts = magnitude_hist(acc, fine_edges)
+    _, t = _solve_threshold(f_counts, fine_edges, k)
+    return t
+
+
+def topk_compress(g: torch.Tensor, residual: torch.Tensor, *, rate: float,
+                  coarse_buckets: int = 48, fine_buckets: int = 128):
+    """Error-feedback threshold top-k at density `rate` (δ = k/d).
+
+    Returns (out_dense, new_residual, nnz, threshold). Selection matches
+    exact top-|.|-k up to threshold-resolution ties."""
+    d = g.numel()
+    k = max(1, min(d, int(round(rate * d))))
+    # the statistics must be over the EF accumulator: pass 3 selects on
+    # |g + residual|
+    acc = g.to(torch.float32) + residual.to(torch.float32)
+    t = solve_threshold(acc, k, coarse_buckets=coarse_buckets,
+                        fine_buckets=fine_buckets)
+    out, new_res, nnz = ef_topk(g, residual, t)
+    return out, new_res, nnz, t
+
+
+def topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of x, largest first, ties broken
+    by lower index first — the order `jax.lax.top_k` gives (torch.topk
+    promises no order on ties)."""
+    return torch.sort(x, descending=True, stable=True).indices[:k]
+
+
+def compact_topk(dense: torch.Tensor, k: int):
+    """Compact a dense masked vector to the (values, int32 indices) wire
+    format: the k largest-|.| coordinates; when nnz(dense) <= k the extra
+    slots carry zero values, so scatter-adding them onto zeros rebuilds
+    `dense` exactly."""
+    idx = topk_indices(dense.abs(), k)
+    return dense[idx], idx.to(torch.int32)
+
+
+def momentum_update(w: torch.Tensor, mu: torch.Tensor, g: torch.Tensor, *,
+                    lr: float, momentum: float = 0.9):
+    """One fused momentum-SGD step, in place on (w, mu)."""
+    return fused_momentum(w, mu, g, lr=lr, momentum=momentum)

@@ -1,0 +1,199 @@
+"""Training CLI (PyTorch port of `repro.launch.train`, `--mode fl`).
+
+Asynchronous federated training of one of the paper's tasks under any of
+the 5 methods, on the event-driven simulator (sequential engine) with real
+PyTorch compute on `--device` (default `cuda`; `cpu` for a smoke run on a
+machine without a card). Same flags and the same result-JSON keys as the
+reference. Checkpoints (`--ckpt-dir`/`--resume`) and `--mode datacenter`
+are not ported yet and raise.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --task cnn_fmnist \
+      --method fedluck --error-feedback --rounds 60
+  PYTHONPATH=src python -m repro_torch.launch.train --task mlp_micro \
+      --rounds 4 --devices 3 --samples 600 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+from repro_torch.obs import log
+
+
+def make_obs(args):
+    """(tracer, metrics) from --trace-out/--metrics-out, else (None, None)."""
+    tracer = metrics = None
+    if getattr(args, "trace_out", ""):
+        from repro_torch.obs import Tracer
+        tracer = Tracer()
+    if getattr(args, "metrics_out", ""):
+        from repro_torch.obs import MetricsRegistry
+        metrics = MetricsRegistry()
+    return tracer, metrics
+
+
+def export_obs(args, tracer, metrics, extra=None) -> None:
+    """Write the trace/metrics artifacts named by the CLI flags."""
+    if tracer is not None:
+        from repro_torch.obs import PerfettoExporter
+        PerfettoExporter().export(tracer, args.trace_out)
+        log.status(f"[obs] wrote trace: {args.trace_out} "
+                   f"({len(tracer)} events)")
+    if metrics is not None:
+        metrics.to_json(args.metrics_out, extra=extra)
+        log.status(f"[obs] wrote metrics: {args.metrics_out}")
+
+
+# --------------------------------------------------------------------- FL mode
+def run_fl(args) -> dict:
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.core.aggregation import SanitizerConfig
+    from repro_torch.core.simulator import (AFLSimulator, STRATEGY_FOR_METHOD,
+                                            make_heterogeneous_devices,
+                                            plan_devices)
+    from repro_torch.data.partition import dirichlet_partition, iid_partition
+    from repro_torch.ft import FailureSchedule, LossyChannel
+    from repro_torch.models import small
+
+    if args.ckpt_dir or args.resume:
+        raise NotImplementedError(
+            "--ckpt-dir/--resume are not ported yet (ROADMAP.md, queue 1, "
+            "item 5: checkpoints)")
+    device = resolve_device(args.device)
+    task = small.make_task(args.task, num_samples=args.samples,
+                           test_samples=args.test_samples,
+                           batch_size=args.batch_size, noise=args.noise)
+    flat = task.init_fn(torch.Generator().manual_seed(args.seed))
+    model_bits = int(flat.numel()) * 32
+
+    profiles = make_heterogeneous_devices(
+        args.devices, model_bits, base_alpha=args.base_alpha, seed=args.seed)
+    specs = plan_devices(profiles, args.method, args.round_period,
+                         k_bounds=(1, args.k_max), fixed_k=args.fixed_k,
+                         fixed_delta=args.fixed_delta,
+                         error_feedback=args.error_feedback)
+    if args.noniid:
+        idx = dirichlet_partition(task.dataset.labels, args.devices,
+                                  alpha=1.0, seed=args.seed)
+    else:
+        idx = iid_partition(len(task.dataset), args.devices, seed=args.seed)
+
+    # --failure-rate N sets the per-device crash rate; the legacy
+    # --inject-failures switch keeps its historical default of 0.2
+    failure = None
+    if args.failure_rate > 0 or args.inject_failures:
+        failure = FailureSchedule.random(
+            args.devices, args.rounds * args.round_period,
+            rate_per_device=args.failure_rate or 0.2, seed=args.seed)
+    channel = (LossyChannel(loss_prob=args.loss_rate, seed=args.seed)
+               if args.loss_rate > 0 else None)
+    sanitizer = None
+    if args.tau_max is not None or args.clip_norm is not None:
+        sanitizer = SanitizerConfig(tau_max=args.tau_max,
+                                    clip_norm=args.clip_norm)
+
+    tracer, metrics = make_obs(args)
+    sim = AFLSimulator(task, specs, STRATEGY_FOR_METHOD[args.method],
+                       round_period=args.round_period, eta_l=args.eta_l,
+                       eta_g=args.eta_g, seed=args.seed, client_indices=idx,
+                       failure_schedule=failure, channel=channel,
+                       sanitizer=sanitizer, tracer=tracer, metrics=metrics,
+                       engine="sequential", device=device)
+
+    # run in segments of --ckpt-every rounds, as the reference does (each
+    # segment restarts the simulated clock), so results stay comparable
+    seg = max(1, args.ckpt_every)
+    hist_all = []
+    t0 = time.perf_counter()
+    while sim.model.round < args.rounds:
+        target = min(args.rounds, sim.model.round + seg)
+        hist = sim.run(total_rounds=target, eval_every=args.eval_every)
+        hist_all.extend(hist.records)
+        r = hist.records[-1]
+        log.status(f"[train] round={sim.model.round} acc={r.accuracy:.3f} "
+                   f"sim_t={r.time:.1f}s comm={r.gbits:.3f}Gb "
+                   f"wall={time.perf_counter()-t0:.0f}s")
+    if not hist_all:
+        hist_all.extend(
+            sim.run(total_rounds=sim.model.round, eval_every=1).records)
+    final = hist_all[-1]
+    export_obs(args, tracer, metrics,
+               extra={"engine": "sequential", "task": args.task,
+                      "method": args.method, "device": str(device)})
+    return {"final_accuracy": final.accuracy, "rounds": sim.model.round,
+            "gbits": final.gbits, "sim_time": final.time,
+            "fault_counters": sim.fault_counters()}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="fl", choices=["fl", "datacenter"])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device for training (cuda | cpu); cuda "
+                         "without a card raises")
+    # fl
+    ap.add_argument("--task", default="cnn_fmnist")
+    ap.add_argument("--method", default="fedluck")
+    ap.add_argument("--rounds", type=int, default=40)
+    ap.add_argument("--devices", type=int, default=10)
+    ap.add_argument("--round-period", type=float, default=1.0)
+    ap.add_argument("--k-max", type=int, default=30)
+    ap.add_argument("--fixed-k", type=int, default=10)
+    ap.add_argument("--fixed-delta", type=float, default=0.1)
+    ap.add_argument("--eta-l", type=float, default=0.05)
+    ap.add_argument("--eta-g", type=float, default=1.0)
+    ap.add_argument("--base-alpha", type=float, default=0.02)
+    ap.add_argument("--samples", type=int, default=4000)
+    ap.add_argument("--test-samples", type=int, default=800)
+    ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--noise", type=float, default=None)
+    ap.add_argument("--error-feedback", action="store_true")
+    ap.add_argument("--noniid", action="store_true")
+    ap.add_argument("--inject-failures", action="store_true")
+    ap.add_argument("--failure-rate", type=float, default=0.0,
+                    help="mean crash windows per device over the run "
+                         "(FailureSchedule.random rate_per_device)")
+    ap.add_argument("--loss-rate", type=float, default=0.0,
+                    help="per-attempt upload loss probability (LossyChannel "
+                         "with default retry/backoff policy)")
+    ap.add_argument("--tau-max", type=int, default=None,
+                    help="staleness cap: aggregation drops updates with "
+                         "τ > tau-max (enables the UpdateSanitizer)")
+    ap.add_argument("--clip-norm", type=float, default=None,
+                    help="L2 norm outlier guard on admitted updates "
+                         "(enables the UpdateSanitizer)")
+    ap.add_argument("--eval-every", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="not ported yet: raises when set")
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="rounds per sim.run segment")
+    ap.add_argument("--resume", action="store_true",
+                    help="not ported yet: raises when set")
+    # observability (fl mode)
+    ap.add_argument("--trace-out", default="",
+                    help="write a Perfetto/Chrome trace JSON of the run")
+    ap.add_argument("--metrics-out", default="",
+                    help="write a metrics snapshot JSON "
+                         "(repro_torch.obs.MetricsRegistry)")
+    ap.add_argument("--quiet", action="store_true",
+                    help="suppress status lines (final JSON still printed)")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    log.set_quiet(args.quiet)
+    if args.mode != "fl":
+        raise NotImplementedError(
+            "--mode datacenter is not ported yet (ROADMAP.md, queue 1, "
+            "item 9: datacenter mode and serving)")
+    print(json.dumps(run_fl(args), indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,79 @@
+"""Profiling hooks: wall-clock phase timers and torch.profiler annotations.
+
+`PhaseTimers` accumulates `time.perf_counter` wall-clock totals per named
+phase (local-round dispatch, host aggregation, eval). perf_counter is
+monotonic — immune to clock adjustments — and the timers live entirely
+host-side. On a CUDA device a phase measures host time: kernels are
+enqueued asynchronously, so a phase ends before its device work unless
+something in it synchronises (the sequential engine's payload pull does).
+
+`annotate(name)` wraps a host-side dispatch in
+`torch.profiler.record_function` when profiling is switched on
+(`set_profiling(True)` or REPRO_PROFILE=1 in the environment), so a
+`torch.profiler.profile()` capture shows the local-round and compressor
+dispatches as named regions. When profiling is off it returns a shared
+null context — one module-level predicate per call, no allocation.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+_PROFILE = os.environ.get("REPRO_PROFILE", "") not in ("", "0", "false")
+_NULL_CTX = contextlib.nullcontext()
+
+
+def set_profiling(on: bool) -> None:
+    """Globally enable/disable torch.profiler annotations."""
+    global _PROFILE
+    _PROFILE = bool(on)
+
+
+def profiling_enabled() -> bool:
+    return _PROFILE
+
+
+def annotate(name: str):
+    """Context manager: a `torch.profiler.record_function(name)` region
+    when profiling is enabled, else a shared no-op context."""
+    if not _PROFILE:
+        return _NULL_CTX
+    import torch
+    return torch.profiler.record_function(name)
+
+
+class PhaseTimers:
+    """Named wall-clock accumulators: `with timers.phase("drain"): ...`."""
+
+    def __init__(self):
+        self.totals: dict[str, float] = {}
+        self.calls: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.calls[name] = self.calls.get(name, 0) + 1
+
+    def add(self, name: str, seconds: float) -> None:
+        """Manual accumulation for phases that cannot use a with-block."""
+        self.totals[name] = self.totals.get(name, 0.0) + float(seconds)
+        self.calls[name] = self.calls.get(name, 0) + 1
+
+    def snapshot(self) -> dict:
+        return {name: {"seconds": round(self.totals[name], 6),
+                       "calls": self.calls[name]}
+                for name in sorted(self.totals)}
+
+    def export_to(self, metrics) -> None:
+        """Mirror totals into a MetricsRegistry under the time.* namespace
+        (wall-clock: never compared across runs)."""
+        for name, total in self.totals.items():
+            metrics.counter(f"time.{name}_s").value = total
+            metrics.counter(f"time.{name}_calls").value = \
+                float(self.calls[name])

@@ -1,0 +1,218 @@
+"""The port's kernel wrappers (run through their plain versions on the CPU)
+against the JAX package's Pallas kernels in interpret mode, on the
+reference's sweep (tests/test_kernels.py): d in {127, 1024, 8192, 40000},
+f32 and bf16 inputs."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.ef_topk import ef_topk as j_ef_topk  # noqa: E402
+from repro.kernels.fused_momentum import fused_momentum as j_fused  # noqa: E402
+from repro.kernels.magnitude_hist import magnitude_hist as j_hist  # noqa: E402
+
+from repro_torch import resolve_device  # noqa: E402
+from repro_torch.kernels import ef_topk as ef_mod  # noqa: E402
+from repro_torch.kernels import fused_momentum as fm_mod  # noqa: E402
+from repro_torch.kernels import magnitude_hist as mh_mod  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+SHAPES = [127, 1024, 8192, 40_000]
+DTYPES = ["float32", "bfloat16"]
+
+
+def _g(d, seed=0):
+    rng = np.random.RandomState(seed)
+    return rng.randn(d).astype(np.float32) * np.exp(rng.randn(d)).astype(
+        np.float32)
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch CPU tensor of `dtype`
+    (both round f32 -> bf16 to nearest even). Each side gets its own copy:
+    a CPU JAX array may alias the numpy buffer, and JAX runs
+    asynchronously, so an in-place torch update must not reach it."""
+    return (jnp.asarray(x.copy()).astype(getattr(jnp, dtype)),
+            torch.tensor(x).to(getattr(torch, dtype)))
+
+
+def _np32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _ulps(a: float, b: float) -> int:
+    ia = np.asarray(a, np.float32).view(np.int32)
+    ib = np.asarray(b, np.float32).view(np.int32)
+    return abs(int(ia) - int(ib))
+
+
+class TestMagnitudeHist:
+    @pytest.mark.parametrize("d", SHAPES)
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_vs_jax_kernel(self, d, dtype):
+        jg, tg = _pair(_g(d, d), dtype)
+        gmax = float(np.abs(_np32(tg)).max()) + 1e-30
+        edges = (np.float32(gmax) * 2.0 ** -np.arange(33)).astype(np.float32)
+        want = j_hist(jg, jnp.asarray(edges), block=2048, interpret=True)
+        got = mh_mod.magnitude_hist(tg, torch.from_numpy(edges))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want).astype(np.int64))
+
+    def test_padding_does_not_count(self):
+        jg, tg = _pair(_g(100, 1), "float32")
+        edges = np.asarray([1e-20], np.float32)
+        want = j_hist(jg, jnp.asarray(edges), block=2048, interpret=True)
+        got = mh_mod.magnitude_hist(tg, torch.from_numpy(edges))
+        assert int(got[0]) == int(want[0]) == 100
+
+
+class TestEfTopk:
+    @pytest.mark.parametrize("d", SHAPES)
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_vs_jax_kernel_bitwise(self, d, dtype):
+        jg, tg = _pair(_g(d, d), dtype)
+        jr, tr = _pair(_g(d, d + 1) * 0.1, dtype)
+        j_out, j_res, j_nnz = j_ef_topk(jg, jr, jnp.float32(0.5), block=2048,
+                                        interpret=True)
+        out, res, nnz = ef_mod.ef_topk(tg, tr, torch.tensor(0.5))
+        assert out.dtype == tg.dtype and res.dtype == tr.dtype
+        assert nnz.dtype == torch.int32 and int(nnz) == int(j_nnz)
+        np.testing.assert_array_equal(_np32(out), _np32(j_out))
+        np.testing.assert_array_equal(_np32(res), _np32(j_res))
+
+    def test_conservation_bitwise(self):
+        g, r = torch.from_numpy(_g(5000, 2)), torch.from_numpy(_g(5000, 3))
+        out, res, _ = ef_mod.ef_topk(g, r * 0.2, 1.0)
+        assert torch.equal(out + res, g + r * 0.2)
+
+
+class TestFusedMomentum:
+    @pytest.mark.parametrize("d", SHAPES)
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_vs_jax_kernel(self, d, dtype):
+        jw, tw = _pair(_g(d, 5), dtype)
+        jmu, tmu = _pair(_g(d, 6), "float32")
+        jgg, tgg = _pair(_g(d, 7), dtype)
+        w2, mu2 = j_fused(jw, jmu, jgg, lr=0.1, momentum=0.9, block=2048,
+                          interpret=True)
+        rw, rmu = fm_mod.fused_momentum(tw, tmu, tgg, lr=0.1, momentum=0.9)
+        assert rw is tw and rmu is tmu          # updated in place
+        np.testing.assert_allclose(_np32(rw), _np32(w2), rtol=2e-5, atol=1e-6)
+        np.testing.assert_allclose(_np32(rmu), _np32(mu2), rtol=2e-5,
+                                   atol=1e-6)
+
+    def test_in_place_on_a_leaf_that_requires_grad(self):
+        w = torch.from_numpy(_g(300, 8)).requires_grad_(True)
+        mu, g = torch.zeros(300), torch.from_numpy(_g(300, 9))
+        before = w.detach().clone()
+        fm_mod.fused_momentum(w.detach(), mu, g, lr=0.05, momentum=0.9)
+        assert torch.equal(mu, g)
+        torch.testing.assert_close(w.detach(), before - 0.05 * g,
+                                   rtol=2e-5, atol=1e-6)
+
+
+class TestPipeline:
+    @pytest.mark.parametrize("rate", [0.001, 0.01, 0.1])
+    @pytest.mark.parametrize("d", [10_000, 40_000])
+    def test_solve_threshold_within_one_ulp(self, rate, d):
+        """The fine edges hi − (hi−lo)·frac may be FMA-contracted on the
+        XLA side and not in torch: t may differ by one ulp."""
+        acc = _g(d, d + 3)
+        k = max(1, round(rate * d))
+        tj = float(jops.solve_threshold(jnp.asarray(acc), k, interpret=True))
+        tt = float(ops.solve_threshold(torch.from_numpy(acc), k))
+        assert _ulps(tj, tt) <= 1
+
+    @pytest.mark.parametrize("rate", [0.01, 0.1])
+    def test_topk_compress_masks_agree(self, rate):
+        d = 40_000
+        g, r = _g(d, 11), _g(d, 12) * 0.1
+        jo, jres, jn, jt = jops.topk_compress(jnp.asarray(g), jnp.asarray(r),
+                                              rate=rate, interpret=True)
+        to, tres, tn, tt = ops.topk_compress(torch.from_numpy(g),
+                                             torch.from_numpy(r), rate=rate)
+        jm, tm = np.asarray(jo) != 0, to.numpy() != 0
+        lo, hi = sorted((float(jt), float(tt)))
+        mag = np.abs(g + r)
+        differ = jm != tm
+        assert np.all((mag[differ] >= lo) & (mag[differ] < hi))
+        assert abs(int(tn) - int(jn)) == int(differ.sum())
+        assert torch.equal(to + tres, torch.from_numpy(g) + torch.from_numpy(r))
+
+    def test_compact_topk_round_trip_and_tie_order(self):
+        dense = np.zeros(500, np.float32)
+        dense[[3, 7, 11, 40]] = [2.0, -2.0, 2.0, 1.0]   # ties at |2|
+        vals, idx = ops.compact_topk(torch.from_numpy(dense), 6)
+        jv, ji = jops.compact_topk(jnp.asarray(dense), 6)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+        rebuilt = np.zeros(500, np.float32)
+        np.add.at(rebuilt, idx.numpy(), vals.numpy())
+        np.testing.assert_array_equal(rebuilt, dense)
+
+    def test_momentum_update_is_the_fused_kernel(self):
+        w, mu, g = (torch.from_numpy(_g(64, s)) for s in (1, 2, 3))
+        jw, jmu = j_fused(jnp.asarray(_g(64, 1)), jnp.asarray(_g(64, 2)),
+                          jnp.asarray(_g(64, 3)), lr=0.05, interpret=True)
+        ops.momentum_update(w, mu, g, lr=0.05)
+        np.testing.assert_allclose(w.numpy(), np.asarray(jw), rtol=2e-5,
+                                   atol=1e-6)
+
+
+class TestDispatch:
+    """A CPU tensor runs the plain version (and counts no launch); a CUDA
+    request without a card raises; bad inputs raise."""
+
+    @pytest.mark.parametrize("mod,fn,ref_name,args", [
+        (ef_mod, "ef_topk", "ref_ef_topk",
+         lambda: (torch.ones(8), torch.zeros(8), torch.tensor(0.5))),
+        (mh_mod, "magnitude_hist", "ref_magnitude_hist",
+         lambda: (torch.ones(8), torch.tensor([2.0, 0.5]))),
+        (fm_mod, "fused_momentum", "ref_fused_momentum",
+         lambda: (torch.ones(8), torch.zeros(8), torch.ones(8))),
+    ])
+    def test_cpu_tensor_takes_the_plain_version(self, monkeypatch, mod, fn,
+                                                ref_name, args):
+        calls = []
+        real = getattr(mod, ref_name)
+
+        def spy(*a, **kw):
+            calls.append(1)
+            return real(*a, **kw)
+        monkeypatch.setattr(mod, ref_name, spy)
+        wrapper = getattr(mod, fn)
+        before = wrapper.launches
+        kw = {"lr": 0.1} if fn == "fused_momentum" else {}
+        wrapper(*args(), **kw)
+        assert calls == [1]
+        assert wrapper.launches == before
+
+    def test_cuda_request_without_a_card_raises(self):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device("cuda")
+
+    @pytest.mark.parametrize("bad", [
+        lambda: torch.ones(4, 2),                    # not flat
+        lambda: torch.ones(8, dtype=torch.float64),  # dtype
+        lambda: torch.ones(16)[::2],                 # not contiguous
+        lambda: torch.ones(9),                       # length mismatch
+    ])
+    def test_bad_inputs_raise(self, bad):
+        with pytest.raises((ValueError, TypeError)):
+            ef_mod.ef_topk(bad(), torch.zeros(8), 0.5)
+        with pytest.raises((ValueError, TypeError)):
+            fm_mod.fused_momentum(torch.ones(8), torch.zeros(8), bad(),
+                                  lr=0.1)
+
+    def test_edge_count_limit(self):
+        with pytest.raises(ValueError):
+            mh_mod.magnitude_hist(torch.ones(8), torch.ones(mh_mod.MAX_EDGES
+                                                           + 1))
