@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
             (one nvcc per source, started together) and print the card's
             name and power limit;
 2. kernels  hold each kernel against its plain PyTorch version on the card
-            at d in {127, 40000, 1663370} (f32, plus bf16 inputs) — exact
+            at d in {127, 40000, 1663370, 832512, 1665024} (the FL vector,
+            a pod shard and the padded pod vector; f32, plus bf16) — exact
             counts for magnitude_hist, bitwise out/residual/nnz and
             conservation for ef_topk, rtol 2e-5 / atol 1e-6 for
             fused_momentum — and time kernel, plain version and yardstick
@@ -26,7 +27,32 @@ Phases (any failure exits non-zero and prints no result line):
 5. parity   a small run (mlp_micro, 4 devices, topk_threshold + EF) on the
             card and on the CPU (plain versions) from the same weights:
             identical wire bits, counters and staleness, accuracy within
-            0.02 and loss within rtol 1e-3.
+            0.02 and loss within rtol 1e-3;
+6. compact  compact_blocks bitwise (values, indices, counts, residual)
+            against its plain version on nb x blk in {1x128, 8x64, 12x256}
+            x budget in {1, 5, 32}, on the pod path's shard [813, 1024] at
+            budget 10 (the path's threshold and t in {0, inf}), with the
+            shard's threshold solve (both magnitude_hist passes at k = 8130)
+            held to exact counts; timed at [813, 1024], budget 10 (runs
+            inside the kernels phase);
+7. pod      the multi-pod sync path (dist.steps.make_pod_round_step over
+            dist.collectives.make_pod_sync, built by
+            launch.profile_pod.build_pod_round): cnn_fmnist at full width, 4
+            pods x 2 in-pod shards on the card, blk 1024 (nb 1626), δ 0.01
+            (budget 10, `auto` -> compact), k = 5 momentum-SGD steps at
+            batch 32 per pod, 3 rounds with EF carried. Per round: finite
+            loss; launches compact_blocks 8, magnitude_hist 16,
+            fused_momentum 20; kept + r' == delta + r bitwise; <= budget
+            live entries per block; params' == params - mean(kept) at rtol
+            1e-5; wire bits 2 x 68,292 x 8. Gate: the `reference` wire on
+            the same deltas over the 3 carried rounds gives params within
+            rtol 1e-5 / atol 1e-6 and bitwise residuals. Then one round at
+            δ 0.3 resolves to `dense`: ef_topk 4, magnitude_hist 8
+            launches. Prints the wall per round, local rounds vs sync;
+8. podparity  mlp_micro, 2 pods x 2 shards, blk 64, δ 0.05, on the card
+            and on the CPU from the same weights and batches: per-pod
+            losses within rtol 1e-3; the card's deltas synced on the CPU
+            give bitwise residuals and params within rtol 1e-5.
 
 Kernel launch counts are set to 0 just before each main-path run and read
 just after it; launches made to compare a kernel with its plain version
@@ -47,7 +73,11 @@ import time
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # fp32 outside the tensor cores
 D_CNN = 1_663_370               # cnn_fmnist at the paper's width
-SIZES = (127, 40_000, D_CNN)
+# the pod path (`profile_pod.build_pod_round`): 4 pods x 2 in-pod shards,
+# blocks of 1024, δ = 0.01; what it must resolve to, and rounds to drive
+POD_NB, POD_NBL, POD_BLK, POD_BUDGET, POD_ROUNDS = 1626, 813, 1024, 10, 3
+# the FL vector, a pod shard [813, 1024] and the padded pod vector
+SIZES = (127, 40_000, D_CNN, POD_NBL * POD_BLK, POD_NB * POD_BLK)
 
 
 def log(msg: str) -> None:
@@ -97,18 +127,26 @@ def vec(torch, d: int, seed: int):
     return torch.from_numpy(x).to("cuda")
 
 
-def edges_for(torch, g):
-    """The coarse (49) and fine (129) edges the pipeline would use on g."""
+def check_hist(torch, g, what: str, k: int | None = None):
+    """The coarse (49) and fine (129) edges the threshold solve uses on g
+    for top-k (k = 1% of g by default), each pass's magnitude_hist held to
+    exact counts against its plain version; returns (coarse, fine, t)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.magnitude_hist import magnitude_hist
     acc = g.float()
-    k = max(1, round(0.01 * acc.numel()))
+    k = k or max(1, round(0.01 * acc.numel()))
     gmax = acc.abs().max() + 1e-30
     coarse = gmax * torch.exp2(-torch.arange(49, dtype=torch.float32,
-                                             device="cuda"))
+                                             device=g.device))
     lo, hi = ops._solve_threshold(ref.ref_magnitude_hist(acc, coarse),
                                   coarse, k)
-    frac = torch.arange(129, dtype=torch.float32, device="cuda") / 128
+    frac = torch.arange(129, dtype=torch.float32, device=g.device) / 128
     fine = torch.clamp(hi - (hi - lo) * frac, min=1e-30)
+    for name, e in (("coarse", coarse), ("fine", fine)):
+        diff = (magnitude_hist(g, e).long()
+                - ref.ref_magnitude_hist(g, e).long()).abs().max().item()
+        if diff:
+            fail(f"magnitude_hist {name} {what}: counts differ by {diff}")
     return coarse, fine, ops.solve_threshold(acc, k)
 
 
@@ -136,21 +174,13 @@ def phase_kernels(torch) -> dict:
     from repro_torch.kernels.fused_momentum import fused_momentum
     from repro_torch.kernels.magnitude_hist import magnitude_hist
 
+    # magnitude_hist is held to exact counts (check_hist fails otherwise)
     err = {"magnitude_hist": 0.0, "ef_topk": 0.0, "fused_momentum": 0.0}
     for d in SIZES:
         for dtype in (torch.float32, torch.bfloat16):
             g = vec(torch, d, d).to(dtype)
             r = (vec(torch, d, d + 1) * 0.1).to(dtype)
-            coarse, fine, t = edges_for(torch, g)
-            # magnitude_hist: exact counts on both passes' edges
-            for name, e in (("coarse", coarse), ("fine", fine)):
-                got = magnitude_hist(g, e)
-                want = ref.ref_magnitude_hist(g, e)
-                diff = (got.long() - want.long()).abs().max().item()
-                err["magnitude_hist"] = max(err["magnitude_hist"], diff)
-                if diff:
-                    fail(f"magnitude_hist {name} d={d} {dtype}: counts "
-                         f"differ by {diff}")
+            _, _, t = check_hist(torch, g, f"d={d} {dtype}")
             # ef_topk: bitwise out / residual / nnz, and conservation
             out, res, nnz = ef_topk(g, r, t)
             ro, rr, rn = ref.ref_ef_topk(g, r, t)
@@ -180,7 +210,7 @@ def phase_kernels(torch) -> dict:
     # timings at the cnn width, f32
     d = D_CNN
     g, r = vec(torch, d, 1), vec(torch, d, 2) * 0.1
-    coarse, fine, t = edges_for(torch, g)
+    coarse, fine, t = check_hist(torch, g, f"d={d} timed")
     w, mu = vec(torch, d, 3), vec(torch, d, 4)
     p = torch.nn.Parameter(w.clone())
     p.grad = g.clone()
@@ -208,27 +238,102 @@ def phase_kernels(torch) -> dict:
         bound=bound(5 * f4 * d, 4 * d))
     for name, row in rows.items():
         row["max_abs_err"] = err[name]
-        log(f"[time] {name} d={d}: kernel {row['ms']:.6f} ms, plain "
+    rows["compact_blocks"] = phase_compact(torch)
+    for name, row in rows.items():
+        log(f"[time] {name}: kernel {row['ms']:.6f} ms, plain "
             f"{row['plain_ms']:.6f} ms, library {row['library_ms']}, bound "
             f"{row['bound'][0]:.6f} ms ({row['bound'][1]})")
     return rows
 
 
-def reset_counts() -> None:
+def check_compact(torch, acc, t, budget: int, what: str) -> float:
+    """compact_blocks against its plain version: all four outputs bit for
+    bit (floats compared as their int32 bit patterns)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.compact_topk import compact_blocks
+    got = compact_blocks(acc, t, budget=budget)
+    want = ref.ref_compact_blocks(acc, t, budget)
+    err = 0.0
+    for g, w, name in zip(got, want, ("vals", "idx", "cnt", "res")):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"compact_blocks {what} {name}: {g.dtype} {tuple(g.shape)} "
+                 f"vs plain {w.dtype} {tuple(w.shape)}")
+        if g.dtype == torch.float32:
+            err = max(err, (g - w).abs().max().item() if g.numel() else 0.0)
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            fail(f"compact_blocks {what}: {name} differs from the plain "
+                 f"version")
+    return err
+
+
+def phase_compact(torch, dev: str = "cuda") -> dict:
+    """compact_blocks bitwise on the reference's sweep and the pod path's
+    shard, then timed at the shard [813, 1024], budget 10."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.compact_topk import compact_blocks
+    import numpy as np
+
+    def blocked(nb, blk, seed):
+        rng = np.random.RandomState(seed)
+        a = rng.randn(nb, blk).astype(np.float32) * np.exp(
+            rng.randn(nb, blk)).astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    err, n = 0.0, 0
+    for nb, blk in ((1, 128), (8, 64), (12, 256)):
+        for budget in (1, 5, 32):
+            acc = blocked(nb, blk, nb * blk + budget)
+            t = acc.abs().median() * 2
+            err = max(err, check_compact(torch, acc, t, budget,
+                                         f"{nb}x{blk} budget {budget}"))
+            n += 1
+    acc = blocked(POD_NBL, POD_BLK, 7)
+    # the shard's threshold solve, as compact_shard_topk runs it
+    _, _, t_path = check_hist(torch, acc.reshape(-1),
+                              f"{POD_NBL}x{POD_BLK} shard",
+                              POD_NBL * POD_BUDGET)
+    for name, t in (("path t", t_path), ("t=0", 0.0), ("t=inf", math.inf),
+                    ("2x median", acc.abs().median() * 2)):
+        err = max(err, check_compact(torch, acc, t, POD_BUDGET,
+                                     f"{POD_NBL}x{POD_BLK} {name}"))
+        n += 1
+    for t in (0.0, math.inf):
+        err = max(err, check_compact(torch, blocked(4, 64, 3), t, 8,
+                                     f"4x64 t={t}"))
+        n += 1
+    log(f"[compact] compact_blocks bitwise equal to its plain version in "
+        f"{n} cases (max abs err {err}); the {POD_NBL}x{POD_BLK} shard's "
+        f"magnitude_hist passes exact")
+    if dev != "cuda":
+        return {"max_abs_err": err}
+    nbytes = 2 * 4 * acc.numel() + 8 * POD_NBL * POD_BUDGET + 4 * POD_NBL
+    return dict(
+        ms=time_ms(torch, lambda: compact_blocks(acc, t_path,
+                                                 budget=POD_BUDGET)),
+        plain_ms=time_ms(torch, lambda: ref.ref_compact_blocks(
+            acc, t_path, POD_BUDGET)),
+        library_ms=None, bound=bound(nbytes, 2 * acc.numel()),
+        max_abs_err=err)
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels.compact_topk import compact_blocks
     from repro_torch.kernels.ef_topk import ef_topk
     from repro_torch.kernels.fused_momentum import fused_momentum
     from repro_torch.kernels.magnitude_hist import magnitude_hist
-    for fn in (ef_topk, fused_momentum, magnitude_hist):
+    return {"fused_momentum": fused_momentum, "ef_topk": ef_topk,
+            "magnitude_hist": magnitude_hist,
+            "compact_blocks": compact_blocks}
+
+
+def reset_counts() -> None:
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def counts() -> dict:
-    from repro_torch.kernels.ef_topk import ef_topk
-    from repro_torch.kernels.fused_momentum import fused_momentum
-    from repro_torch.kernels.magnitude_hist import magnitude_hist
-    return {"fused_momentum": fused_momentum.launches,
-            "ef_topk": ef_topk.launches,
-            "magnitude_hist": magnitude_hist.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def phase_cli(torch) -> int:
@@ -330,6 +435,168 @@ def phase_parity(torch) -> None:
         f"{hc.records[-1].loss} vs {hh.records[-1].loss}")
 
 
+def _padded(torch, flat, nb: int, blk: int):
+    pb = torch.zeros(nb * blk, dtype=torch.float32, device=flat.device)
+    pb[:flat.numel()] = flat
+    return pb.view(nb, blk)
+
+
+def _bits_equal(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def phase_pod(torch, dev: str = "cuda") -> dict:
+    """The 4-pod datacenter round at full cnn width; returns the launch
+    counts of its 3 compact rounds."""
+    from repro_torch.dist import collectives as col
+    from repro_torch.launch.profile_pod import (LOCAL_K, MESH, RATE,
+                                                build_pod_round)
+
+    pr = build_pod_round(dev)
+    sync, nb = pr.sync, pr.n_blocks
+    n_pods, n_shards = MESH["pod"], MESH["data"] * MESH["model"]
+    if (pr.dim, nb, pr.params.shape[1]) != (D_CNN, POD_NB, POD_BLK):
+        fail(f"pod layout: dim {pr.dim}, nb {nb}, blk {pr.params.shape[1]}")
+    if sync.path != "compact" or sync.wire != col.CompactWire(
+            POD_NBL, POD_BLK, POD_BUDGET):
+        fail(f"pod sync resolved to {sync.path} {sync.wire}")
+    if pr.step.wire_bits_per_pod != 2 * 68_292 * 8:
+        fail(f"wire bits per pod {pr.step.wire_bits_per_pod}")
+    pb0 = pb = pr.params
+    states, res = pr.opt_states, pr.residuals
+    outs, seen = [], []
+    want = {"compact_blocks": n_pods * n_shards,
+            "magnitude_hist": 2 * n_pods * n_shards,
+            "fused_momentum": n_pods * LOCAL_K, "ef_topk": 0}
+    batches = [pr.draw() for _ in range(POD_ROUNDS)]
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    reset_counts()
+    before = counts()
+    for rnd in range(POD_ROUNDS):
+        t0 = time.perf_counter()
+        new_pb, states, new_res, loss = pr.step(pb, states, batches[rnd], res)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        now = counts()
+        c = {key: now[key] - before[key] for key in now}
+        before = now
+        s0, s1 = pr.split.spans[-1]
+        seen.append(pr.split.last_deltas)
+        log(f"[pod] round {rnd}: loss {float(loss):.6f}, wall {wall:.6f}s "
+            f"(local rounds {s0 - t0:.6f}s, sync {s1 - s0:.6f}s), "
+            f"launches {c}")
+        if not math.isfinite(float(loss)):
+            fail(f"pod round {rnd}: loss {float(loss)}")
+        if c != want:
+            fail(f"pod round {rnd}: launches {c}, expected {want}")
+        acc = seen[rnd] + res
+        kept = acc - new_res
+        if not _bits_equal(torch, kept + new_res, acc):
+            fail(f"pod round {rnd}: kept + r' != delta + r")
+        live = (kept != 0).sum(dim=-1)
+        if int(live.max()) > POD_BUDGET:
+            fail(f"pod round {rnd}: {int(live.max())} live entries in a "
+                 f"block, budget {POD_BUDGET}")
+        if not torch.allclose(new_pb, pb - kept.mean(dim=0), rtol=1e-5,
+                              atol=1e-6):
+            fail(f"pod round {rnd}: params' != params - mean(kept)")
+        outs.append((new_pb, new_res))
+        pb, res = new_pb, new_res
+    launches = counts()
+
+    # gate: the dense-carrier reference wire on the same deltas
+    ref_sync = col.make_pod_sync(MESH, nb * POD_BLK, rate=RATE, n_blocks=nb,
+                                 wire="reference")
+    p_r, r_r = pb0, torch.zeros_like(res)
+    for rnd, (p_c, r_c) in enumerate(outs):
+        p_r, r_r = ref_sync(p_r, seen[rnd], r_r)
+        if not torch.allclose(p_c, p_r, rtol=1e-5, atol=1e-6):
+            fail(f"pod gate round {rnd}: compact params differ from the "
+                 f"reference wire's (max abs "
+                 f"{(p_c - p_r).abs().max().item()})")
+        if not _bits_equal(torch, r_c, r_r):
+            fail(f"pod gate round {rnd}: residuals differ from the "
+                 f"reference wire's")
+    log(f"[pod] gate: compact == reference wire over {POD_ROUNDS} carried "
+        f"rounds (params rtol 1e-5, residuals bitwise)")
+
+    # δ = 0.3 is above the crossover 1/P: `auto` resolves to dense
+    dense = build_pod_round(dev, 0.3, task=pr.task)
+    if dense.sync.path != "dense":
+        fail(f"δ=0.3 resolved to {dense.sync.path}")
+    dbatch = dense.draw()
+    reset_counts()
+    new_pb, _, new_res, loss = dense.step(pb, states, dbatch, res)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    c = counts()
+    dwant = {"compact_blocks": 0, "magnitude_hist": 2 * n_pods,
+             "fused_momentum": n_pods * LOCAL_K, "ef_topk": n_pods}
+    log(f"[pod] dense round: loss {float(loss):.6f}, launches {c}")
+    if c != dwant or not math.isfinite(float(loss)) \
+            or not bool(torch.isfinite(new_pb).all()):
+        fail(f"dense round: launches {c} (expected {dwant}), loss "
+             f"{float(loss)}")
+    return launches
+
+
+def phase_podparity(torch, dev: str = "cuda") -> None:
+    """mlp_micro local rounds and syncs on the card against the CPU."""
+    from repro_torch.core import compression as C
+    from repro_torch.dist import collectives as col, steps
+    from repro_torch.launch.profile_pod import TaskLM, pod_batches, pod_blocks
+    from repro_torch.models.small import make_task
+    from repro_torch.optim import momentum_sgd
+
+    mesh, blk, rate, k, n_pods = {"pod": 2, "data": 2, "model": 1}, 64, \
+        0.05, 3, 2
+    task = make_task("mlp_micro", num_samples=600, test_samples=16,
+                     batch_size=16)
+    flat = task.init_fn(torch.Generator().manual_seed(1))
+    dim = flat.numel()
+    nb = pod_blocks(dim, blk, mesh["data"] * mesh["model"])
+    batches = pod_batches(task, n_pods, k, 16, 5, "cpu")()
+
+    def local_rounds(device):
+        opt = momentum_sgd(0.05)
+        local = steps.make_local_round_step(TaskLM(task), opt, k)
+        params = C.unflatten_pytree(flat.to(device), task.spec)
+        deltas = torch.zeros((n_pods, nb * blk), device=device)
+        losses = []
+        for p in range(n_pods):
+            _, _, delta, loss = local(params, opt.init(params),
+                                      {key: v[p].to(device)
+                                       for key, v in batches.items()})
+            deltas[p, :dim] = C.flatten_pytree(delta)[0]
+            losses.append(float(loss))
+        return deltas.view(n_pods, nb, blk), losses
+
+    d_card, l_card = local_rounds(dev)
+    _, l_cpu = local_rounds("cpu")
+    for a, b in zip(l_card, l_cpu):
+        if abs(a - b) > 1e-3 * abs(b):
+            fail(f"podparity: pod losses {l_card} (card) vs {l_cpu} (CPU)")
+    sync = col.make_pod_sync(mesh, nb * blk, rate=rate, n_blocks=nb)
+    if sync.path != "compact":
+        fail(f"podparity sync resolved to {sync.path}")
+    pb = _padded(torch, flat, nb, blk)
+    pc, rc = pb.to(dev), torch.zeros((n_pods, nb, blk), device=dev)
+    ph, rh = pb.clone(), torch.zeros((n_pods, nb, blk))
+    for rnd in range(2):       # the second sync carries a live residual
+        pc, rc = sync(pc, d_card, rc)
+        ph, rh = sync(ph, d_card.cpu(), rh)
+        if not _bits_equal(torch, rc.cpu(), rh):
+            fail(f"podparity sync {rnd}: residuals differ card vs CPU")
+        if not torch.allclose(pc.cpu(), ph, rtol=1e-5, atol=1e-6):
+            fail(f"podparity sync {rnd}: params differ card vs CPU")
+    log(f"[podparity] pod losses card {l_card} vs CPU {l_cpu}; the card's "
+        f"deltas synced on card and CPU: bitwise residuals, params within "
+        f"rtol 1e-5")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -346,8 +613,11 @@ def main() -> int:
     fm = phase_cli(torch)
     th = phase_threshold(torch)
     phase_parity(torch)
+    pod = phase_pod(torch)
+    phase_podparity(torch)
     launches = {"fused_momentum": fm, "ef_topk": th["ef_topk"],
-                "magnitude_hist": th["magnitude_hist"]}
+                "magnitude_hist": th["magnitude_hist"],
+                "compact_blocks": pod["compact_blocks"]}
     meta = {
         "fused_momentum": ("triton", "src/repro_torch/kernels/fused_momentum.py",
                            "src/repro/kernels/fused_momentum.py:46"),
@@ -356,6 +626,9 @@ def main() -> int:
         "magnitude_hist": ("cuda",
                            "src/repro_torch/kernels/csrc/magnitude_hist.cu",
                            "src/repro/kernels/magnitude_hist.py:56"),
+        "compact_blocks": ("cuda",
+                           "src/repro_torch/kernels/csrc/compact_blocks.cu",
+                           "src/repro/kernels/compact_topk.py:72"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():

@@ -35,10 +35,11 @@ class DeviceProfile:
 
 
 def profile_alpha(step_fn: Callable[[], None], warmup: int = 2,
-                  iters: int = 5, device: str = "cpu") -> float:
+                  iters: int = 5, device: str = "cuda") -> float:
     """Measure seconds per local step by running the real step. On a CUDA
-    device the step only enqueues work, so the clock reads are bracketed
-    by `torch.cuda.synchronize()`."""
+    device (the default, as for every entry point of the port) the step
+    only enqueues work, so the clock reads are bracketed by
+    `torch.cuda.synchronize()`; pass device="cpu" for a step on the CPU."""
     sync = _cuda_sync if str(device).startswith("cuda") else (lambda: None)
     for _ in range(warmup):
         step_fn()

@@ -45,11 +45,12 @@ from repro_torch.core.aggregation import (Arrival, GlobalModel,
 from repro_torch.core import factor
 from repro_torch.core.controller import DeviceProfile, FedLuckController
 from repro_torch.core.factor import Plan
-from repro_torch.kernels import ops
+from repro_torch.dist.steps import local_round
 from repro_torch.obs import profiling as _prof
 from repro_torch.obs.metrics import STALENESS_BUCKETS
 from repro_torch.obs.profiling import PhaseTimers
 from repro_torch.obs.trace import CONTROLLER_TRACK, SERVER_TRACK, device_track
+from repro_torch.optim import momentum_sgd
 
 # shared no-op phase context for the uninstrumented (timers=None) path
 _NULL_PHASE = contextlib.nullcontext()
@@ -299,21 +300,14 @@ class AFLSimulator:
 
     def _local_round(self, flat: torch.Tensor, batches: list[dict]
                      ) -> torch.Tensor:
-        """flat params + k batches -> pseudo-gradient g = w0 − wk (Eq. 4).
-
-        `w` is a leaf flat fp32 tensor that requires grad; the model's
-        parameters are views of it, so `autograd.grad` returns the flat
-        gradient and each step is one in-place `fused_momentum` launch on
-        (w, mu). mu starts at zero every cycle."""
-        loss_fn, spec = self.task.loss_fn, self.spec
-        w = flat.clone().requires_grad_(True)
-        mu = torch.zeros_like(flat)
-        for batch in batches:
-            params = C.unflatten_pytree(w, spec)
-            (grad,) = torch.autograd.grad(loss_fn(params, batch), w)
-            ops.momentum_update(w.detach(), mu, grad, lr=self.eta_l,
-                                momentum=self.momentum)
-        return flat - w.detach()  # Eq. 4
+        """flat params + k batches -> pseudo-gradient g = w0 − wk (Eq. 4):
+        `dist.steps.local_round` with momentum-SGD whose mu starts at zero
+        every cycle, so each step is one in-place `fused_momentum`
+        launch."""
+        opt = momentum_sgd(self.eta_l, self.momentum)
+        _, _, g, _ = local_round(self.task.loss_fn, opt, flat, self.spec,
+                                 opt.init(flat), batches)
+        return g
 
     def _compressor_fn(self, spec_d: DeviceSpec) -> C.Compressor:
         key = (spec_d.compressor, float(spec_d.plan.delta),

@@ -1,0 +1,116 @@
+"""Step builders for FedLuck's datacenter round (PyTorch port of the
+local-round and pod-round builders in `repro.dist.steps`).
+
+  make_local_round_step  FedLuck Alg. 1 device loop: k optimizer steps over
+                         a stacked [k, B, ...] batch, returning the Eq. 4
+                         pseudo-gradient delta = w0 − wk in fp32.
+  make_pod_round_step    one full datacenter round: a local round per pod
+                         feeding the Eq. 6 cross-pod sync from
+                         `dist.collectives.make_pod_sync`, with wire bits
+                         taken from the sync's actual payload shape.
+
+`lm` is anything with `.loss(params, batch)` over a nested dict of
+parameters. `local_round` is the one local-round loop of the port, shared
+with `AFLSimulator`: it runs on one flat fp32 leaf buffer whose views are
+the parameters, and each step is one `autograd.grad` for the flat
+gradient and one in-place `opt.update` on the buffer — one
+`fused_momentum` launch for `momentum_sgd`.
+
+`make_train_step` and the prefill/decode builders wait for the
+datacenter/serving slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import compression as C
+from repro_torch.obs.profiling import annotate
+
+
+def local_round(loss_fn, opt, flat: torch.Tensor, spec, opt_state,
+                batches):
+    """One optimizer step per batch dict in `batches`, from the flat fp32
+    params `flat` (left untouched) -> (opt_state_k, w_k flat, delta flat,
+    per-step losses). delta = w0 − wk is the Eq. 4 pseudo-gradient;
+    `opt_state`'s buffers are updated in place."""
+    with annotate("local_round"):
+        w = flat.detach().to(torch.float32).clone().requires_grad_(True)
+        losses = []
+        for batch in batches:
+            loss = loss_fn(C.unflatten_pytree(w, spec), batch)
+            (grad,) = torch.autograd.grad(loss, w)
+            _, opt_state = opt.update(grad, opt_state, w.detach())
+            losses.append(loss.detach())
+        w_k = w.detach()
+        return opt_state, w_k, flat.to(torch.float32) - w_k, losses
+
+
+def _steps(batches: dict, k: int) -> list[dict]:
+    """[k, B, ...] stacked batches -> k per-step batch dicts."""
+    return [{key: v[i] for key, v in batches.items()} for i in range(k)]
+
+
+def make_local_round_step(lm, opt, k: int):
+    """round(params, opt_state, batches) -> (params_k, opt_state_k, delta,
+    mean_loss) where params is a nested dict of tensors, batches a dict of
+    [k, B, ...] tensors and delta = w0 − wk (fp32, a dict shaped like
+    params) is the Eq. 4 pseudo-gradient the caller compresses and ships.
+    `params` is left as it is; `opt_state`'s buffers are updated in
+    place."""
+
+    def round_fn(params, opt_state, batches):
+        flat, spec = C.flatten_pytree(params)
+        s_k, w_k, delta, losses = local_round(lm.loss, opt, flat, spec,
+                                              opt_state, _steps(batches, k))
+        return (C.unflatten_pytree(w_k, spec), s_k,
+                C.unflatten_pytree(delta, spec), torch.stack(losses).mean())
+
+    return round_fn
+
+
+def make_pod_round_step(lm, opt, k: int, sync, *, spec, dim: int,
+                        n_blocks: int):
+    """Compose per-pod local rounds and the cross-pod sync into one round.
+
+    `sync` comes from `dist.collectives.make_pod_sync`; `spec` is the
+    flatten spec of the params (`compression.flatten_pytree`); `dim` is the
+    true flat dim (padded up to n_blocks · blk inside).
+
+    step(params_blocked [nb, blk], opt_states (a list, one state per pod),
+         batches (dict of pod-stacked [P, k, B, ...] tensors),
+         residuals [P, nb, blk])
+      -> (new_params_blocked, new_opt_states, new_residuals, mean_loss)
+
+    The per-round communication cost is static — `step.wire_bits_per_pod`
+    re-exports `sync.payload_bits_per_pod`, the bits one pod's update
+    actually occupies on the wire.
+    """
+
+    def step(params_blocked, opt_states, batches, residuals):
+        nb, blk = params_blocked.shape
+        if nb != n_blocks or nb * blk < dim:
+            raise ValueError(f"params_blocked {tuple(params_blocked.shape)} "
+                             f"does not hold {n_blocks} blocks of dim {dim}")
+        n_pods = len(opt_states)
+        dev = params_blocked.device
+        flat = params_blocked.reshape(-1)[:dim]
+        # the padded coordinates get a zero delta
+        flat_deltas = torch.zeros((n_pods, nb * blk), dtype=torch.float32,
+                                  device=dev)
+        new_states, losses = [], []
+        for p in range(n_pods):
+            pod_batches = {key: v[p] for key, v in batches.items()}
+            s_k, _, delta, pod_losses = local_round(
+                lm.loss, opt, flat, spec, opt_states[p],
+                _steps(pod_batches, k))
+            flat_deltas[p, :dim] = delta
+            new_states.append(s_k)
+            losses.append(torch.stack(pod_losses).mean())
+        deltas = flat_deltas.view(n_pods, nb, blk)
+        new_blocked, new_residuals = sync(params_blocked, deltas, residuals)
+        return new_blocked, new_states, new_residuals, \
+            torch.stack(losses).mean()
+
+    step.wire_bits_per_pod = float(getattr(sync, "payload_bits_per_pod",
+                                           0.0))
+    return step

@@ -4,8 +4,10 @@
   ef_topk         Triton    replaces repro/kernels/ef_topk.py
   magnitude_hist  CUDA C++  replaces repro/kernels/magnitude_hist.py
                             (csrc/magnitude_hist.cu, built for sm_90a)
+  compact_blocks  CUDA C++  replaces repro/kernels/compact_topk.py
+                            (csrc/compact_blocks.cu, built for sm_90a)
 
 Each wrapper takes its plain version (`ref.py`) only for tensors on the
 CPU; for a CUDA tensor it launches the kernel or raises. `ops.py` composes
-them into the threshold top-k pipeline.
+them into the threshold top-k pipeline and the pod-sync shard compaction.
 """

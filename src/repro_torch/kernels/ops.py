@@ -9,17 +9,23 @@
   solve   threshold t s.t. #{|acc| >= t} ~= δ·d   (tensor ops on the device)
   pass 3  fused EF select                     (ef_topk kernel)
 
+`compact_shard_topk` is the pod-sync shard compaction: one threshold solve
+(passes 0-2) over a blocked shard [nb, blk] targeting nb·budget keeps, then
+the `compact_blocks` kernel packs each block into `budget` slots.
+`topk_compress_sparse` is `topk_compress` followed by `compact_topk`.
+
 Every step stays on the tensor's device; nothing here synchronises with
-the host. `compact_shard_topk` and `topk_compress_sparse` wait for the
-`compact_blocks` kernel (the multi-pod pod-sync slice).
+the host.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.compact_topk import compact_blocks
 from repro_torch.kernels.ef_topk import ef_topk
 from repro_torch.kernels.fused_momentum import fused_momentum
 from repro_torch.kernels.magnitude_hist import magnitude_hist
+from repro_torch.obs.profiling import annotate
 
 
 def _solve_threshold(counts_ge: torch.Tensor, edges: torch.Tensor, k):
@@ -86,6 +92,41 @@ def compact_topk(dense: torch.Tensor, k: int):
     `dense` exactly."""
     idx = topk_indices(dense.abs(), k)
     return dense[idx], idx.to(torch.int32)
+
+
+def topk_compress_sparse(g: torch.Tensor, residual: torch.Tensor, *,
+                         rate: float, coarse_buckets: int = 48,
+                         fine_buckets: int = 128, slack: float = 1.05):
+    """`topk_compress` returning the compact (values, indices) wire pair.
+
+    Returns (values, indices, new_residual, nnz, threshold) with
+    len(values) == min(d, int(slack·k) + 8): the histogram threshold can
+    overshoot k by ties within one fine bucket, so the capacity carries a
+    small slack."""
+    out, new_res, nnz, t = topk_compress(
+        g, residual, rate=rate, coarse_buckets=coarse_buckets,
+        fine_buckets=fine_buckets)
+    d = g.numel()
+    k = max(1, min(d, int(round(rate * d))))
+    vals, idx = compact_topk(out, min(d, int(k * slack) + 8))
+    return vals, idx, new_res, nnz, t
+
+
+def compact_shard_topk(acc: torch.Tensor, *, budget: int,
+                       coarse_buckets: int = 48, fine_buckets: int = 128):
+    """Per-shard compact top-k over a blocked EF accumulator [nb, blk].
+
+    One histogram threshold solve over the whole shard targeting
+    nb·budget keeps (two `magnitude_hist` launches), then one
+    `compact_blocks` launch. Returns (values [nb, budget], indices
+    [nb, budget] i32 shard-flat, counts [nb] i32, residual [nb, blk])."""
+    with annotate("compact_shard_topk"):
+        nb, _ = acc.shape
+        acc = acc.to(torch.float32).contiguous()
+        t = solve_threshold(acc.reshape(-1), nb * budget,
+                            coarse_buckets=coarse_buckets,
+                            fine_buckets=fine_buckets)
+        return compact_blocks(acc, t, budget=budget)
 
 
 def momentum_update(w: torch.Tensor, mu: torch.Tensor, g: torch.Tensor, *,

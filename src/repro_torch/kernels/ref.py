@@ -32,3 +32,36 @@ def ref_fused_momentum(w: torch.Tensor, mu: torch.Tensor, g: torch.Tensor, *,
     mu_new = momentum * mu.to(torch.float32) + g.to(torch.float32)
     w_new = w.to(torch.float32) - lr * mu_new
     return w_new.to(w.dtype), mu_new.to(mu.dtype)
+
+
+def ref_compact_blocks(acc: torch.Tensor, threshold, budget: int) -> tuple:
+    """(values f32[nb, budget], indices i32[nb, budget], counts i32[nb],
+    residual f32[nb, blk]) for acc [nb, blk]: each block's |acc| >= t
+    survivors front-packed in index order into `budget` slots, shard-flat
+    indices b·blk + offset, padding slots (0.0, 0), residual acc − shipped.
+
+    The reference packs with an argsort over a slot key; a cumsum gives
+    every survivor its slot and one scatter places it, with the same
+    outputs bit for bit."""
+    acc = acc.to(torch.float32)
+    nb, blk = acc.shape
+    t = torch.as_tensor(threshold, dtype=torch.float32, device=acc.device)
+    keep = acc.abs() >= t
+    ki = keep.to(torch.int32)
+    pos = torch.cumsum(ki, dim=1, dtype=torch.int32) - ki
+    in_budget = keep & (pos < budget)
+    zero = torch.zeros((), dtype=torch.float32, device=acc.device)
+    shipped = torch.where(in_budget, acc, zero)
+    cnt = in_budget.sum(dim=1, dtype=torch.int32)
+    # survivors scatter to their slot; everything else to a spare column
+    # that is cut off afterwards
+    slot = torch.where(in_budget, pos, budget).to(torch.int64)
+    gidx = (torch.arange(nb, dtype=torch.int32, device=acc.device)[:, None]
+            * blk + torch.arange(blk, dtype=torch.int32,
+                                 device=acc.device)[None, :])
+    vals = torch.zeros((nb, budget + 1), dtype=torch.float32,
+                       device=acc.device).scatter_(1, slot, shipped)
+    idx = torch.zeros((nb, budget + 1), dtype=torch.int32,
+                      device=acc.device).scatter_(1, slot, gidx)
+    return (vals[:, :budget].contiguous(), idx[:, :budget].contiguous(), cnt,
+            acc - shipped)

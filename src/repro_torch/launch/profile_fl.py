@@ -22,6 +22,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.launch import train
 from repro_torch.obs import log
+from repro_torch.obs.profiling import device_breakdown, device_profile
 
 
 def main(argv=None):
@@ -40,31 +41,17 @@ def main(argv=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         res = train.run_fl(copy.deepcopy(args))
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
 
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        rows.append((e.key, e.count, us / 1e3))
-    rows.sort(key=lambda r: -r[2])
-    busy = sum(r[2] for r in rows) / 1e3
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "task": args.task, "method": args.method, "rounds": args.rounds,
         "result": res, "wall_s": wall, "profiled_wall_s": wall_prof,
-        "device_busy_s": busy if rows else None,
-        "idle_share": (1.0 - busy / wall_prof) if rows else None,
-        "top": [{"name": n[:120], "calls": c, "ms": ms}
-                for n, c, ms in rows[:args.top]],
+        **device_breakdown(prof, wall_prof, args.top),
     }, indent=1))
 
 

@@ -13,6 +13,10 @@ something in it synchronises (the sequential engine's payload pull does).
 `torch.profiler.profile()` capture shows the local-round and compressor
 dispatches as named regions. When profiling is off it returns a shared
 null context — one module-level predicate per call, no allocation.
+
+`device_profile()` and `device_breakdown(prof, wall_s)` are the launch
+profilers' shared capture and summary: device-busy seconds, the idle
+share of a wall time, and the top device entries.
 """
 from __future__ import annotations
 
@@ -41,6 +45,37 @@ def annotate(name: str):
         return _NULL_CTX
     import torch
     return torch.profiler.record_function(name)
+
+
+def device_profile():
+    """A `torch.profiler.profile` context that records host and CUDA
+    activity."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    return torch.profiler.profile(activities=acts)
+
+
+def device_breakdown(prof, wall_s: float, top: int = 15) -> dict:
+    """Summary of a finished `device_profile()` capture: `device_busy_s`
+    (sum of the self times of its CUDA entries — kernels and copies, one
+    stream), `idle_share` of `wall_s`, and the `top` device entries by time
+    with their call counts. Busy time and idle share are None when the
+    capture holds no device entry."""
+    import torch
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        rows.append((e.key, e.count, us / 1e3))
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows) / 1e3
+    return {"device_busy_s": busy if rows else None,
+            "idle_share": (1.0 - busy / wall_s) if rows else None,
+            "top": [{"name": n[:120], "calls": c, "ms": ms}
+                    for n, c, ms in rows[:top]]}
 
 
 class PhaseTimers:

@@ -67,6 +67,21 @@ class TestPlans:
             assert dataclasses.astuple(jplan) == dataclasses.astuple(tplan)
         assert jc.replans == tc.replans and jc.summary() == tc.summary()
 
+    def test_profile_alpha_defaults_to_the_card(self):
+        import inspect
+        sig = inspect.signature(TCtl.profile_alpha)
+        assert sig.parameters["device"].default == "cuda"
+
+    def test_profile_alpha_on_the_cpu(self, monkeypatch):
+        """An explicit device="cpu" runs warmup + iters steps and never
+        synchronises a CUDA device."""
+        calls = []
+        monkeypatch.setattr(TCtl, "_cuda_sync",
+                            lambda: pytest.fail("synchronised on the CPU"))
+        alpha = TCtl.profile_alpha(lambda: calls.append(1), warmup=2,
+                                   iters=3, device="cpu")
+        assert len(calls) == 5 and 0.0 <= alpha < 1.0
+
 
 def _arrivals(mod, sparse: bool):
     rng = np.random.RandomState(5)
@@ -227,3 +242,25 @@ class TestObs:
                 pass
         finally:
             profiling.set_profiling(False)
+
+    def test_device_breakdown_sums_device_entries(self):
+        """The launch profilers' summary: busy seconds from the CUDA
+        entries' self times only, idle share of the wall, top by time."""
+        from types import SimpleNamespace as NS
+        from repro_torch.obs import profiling
+        cuda, cpu = torch.autograd.DeviceType.CUDA, \
+            torch.autograd.DeviceType.CPU
+        events = [NS(key="conv", count=4, device_type=cuda,
+                     self_device_time_total=3000.0),
+                  NS(key="host", count=9, device_type=cpu,
+                     self_device_time_total=9e9),
+                  NS(key="copy", count=2, device_type=cuda,
+                     self_device_time_total=1000.0)]
+        out = profiling.device_breakdown(NS(key_averages=lambda: events),
+                                         0.01, top=1)
+        assert out["device_busy_s"] == pytest.approx(0.004)
+        assert out["idle_share"] == pytest.approx(0.6)
+        assert out["top"] == [{"name": "conv", "calls": 4, "ms": 3.0}]
+        host_only = NS(key_averages=lambda: events[1:2])
+        empty = profiling.device_breakdown(host_only, 0.01)
+        assert empty == {"device_busy_s": None, "idle_share": None, "top": []}

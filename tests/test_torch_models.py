@@ -128,7 +128,7 @@ def test_local_round_matches_round_body(monkeypatch):
     def spy(*a, **kw):
         calls.append(1)
         return real(*a, **kw)
-    monkeypatch.setattr("repro_torch.kernels.ops.fused_momentum", spy)
+    monkeypatch.setattr("repro_torch.optim.optim.fused_momentum", spy)
     got = tsim._local_round(small.params_from_jax(np_params),
                             [tsim._to_device(b) for b in batches])
     assert len(calls) == 3
