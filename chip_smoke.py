@@ -13,9 +13,14 @@ Phases (any failure exits non-zero and prints no result line):
             a pod shard and the padded pod vector; f32, plus bf16) — exact
             counts for magnitude_hist, bitwise out/residual/nnz and
             conservation for ef_topk, rtol 2e-5 / atol 1e-6 for
-            fused_momentum — and time kernel, plain version and yardstick
-            PyTorch call at d = 1,663,370 (CUDA events, median of 30
-            launches, L2 flushed before each);
+            fused_momentum; magnitude_hist also exact on views at storage
+            offsets 1-3, d in {1, 3, 4097}, NaN and +-Inf entries, 1 and
+            1024 edges, ten calls back to back and a call on a second
+            stream, and one call is one kernel on the card under
+            torch.profiler — and time kernel, plain version and yardstick
+            PyTorch call at d = 1,663,370, magnitude_hist also at the pod
+            shard d = 832,512 (CUDA events, median of 30 launches, L2
+            flushed before each);
 3. cli      `run_fl(--task cnn_fmnist --method fedluck --error-feedback
             --rounds 3 --device cuda)` with the CLI's other defaults (10
             devices, 4000 samples): finite accuracy, positive gbits, and
@@ -30,8 +35,11 @@ Phases (any failure exits non-zero and prints no result line):
             0.02 and loss within rtol 1e-3;
 6. compact  compact_blocks bitwise (values, indices, counts, residual)
             against its plain version on nb x blk in {1x128, 8x64, 12x256}
-            x budget in {1, 5, 32}, on the pod path's shard [813, 1024] at
-            budget 10 (the path's threshold and t in {0, inf}), with the
+            x budget in {1, 5, 32}, on blk in {100, 1000, 2048, 4096,
+            10000} at budget 10 and budget = blk, on rows at a storage
+            offset of 1 (not 16-byte aligned), on NaN and +-Inf entries
+            within and past the budget, on the pod path's shard [813, 1024]
+            at budget 10 (the path's threshold and t in {0, inf}), with the
             shard's threshold solve (both magnitude_hist passes at k = 8130)
             held to exact counts; timed at [813, 1024], budget 10 (runs
             inside the kernels phase);
@@ -64,7 +72,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -88,29 +95,7 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-# ------------------------------------------------------------------- timing
-def time_ms(torch, fn, *, iters: int = 30, warmup: int = 5) -> float:
-    """Median per-launch device time of `fn` (CUDA events around each
-    call), with the 50 MB L2 flushed before every timed call. A sleep
-    kernel first holds the stream so the host enqueues every launch ahead
-    of the device: the events then time the device, not Python."""
-    flush = torch.empty(96 * 2 ** 20 // 4, dtype=torch.float32,
-                        device="cuda")
-    for _ in range(warmup):
-        fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)       # ~25 ms at the SM clock
-    for s, e in zip(starts, ends):
-        flush.zero_()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
-
-
+# ------------------------------------------------------------------ helpers
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
     """Least time on an H100 SXM: the larger of bytes over the memory rate
     and operations over the fp32 rate, in ms, and which one binds."""
@@ -119,35 +104,97 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def vec(torch, d: int, seed: int):
-    import numpy as np
-    rng = np.random.RandomState(seed)
-    x = rng.randn(d).astype(np.float32) * np.exp(rng.randn(d)).astype(
-        np.float32)
-    return torch.from_numpy(x).to("cuda")
+def check_hist_cases(torch, dev: str = "cuda") -> int:
+    """magnitude_hist exact against its plain version where the one-launch,
+    16-byte-load kernel has its own code paths: views at storage offsets
+    1-3 (a scalar head), lengths 1, 3 and 4097 (a scalar tail), NaN and
+    +-Inf entries (also in the head and tail), 1 and MAX_EDGES edges, ten
+    calls back to back (the workspace resets) and a call on a second
+    stream. On the card, one call puts exactly one kernel on the device
+    (torch.profiler). Returns the number of calls checked."""
+    from repro_torch.kernels import magnitude_hist as mh
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.checks import check_hist, vec
 
+    n = 0
 
-def check_hist(torch, g, what: str, k: int | None = None):
-    """The coarse (49) and fine (129) edges the threshold solve uses on g
-    for top-k (k = 1% of g by default), each pass's magnitude_hist held to
-    exact counts against its plain version; returns (coarse, fine, t)."""
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.magnitude_hist import magnitude_hist
-    acc = g.float()
-    k = k or max(1, round(0.01 * acc.numel()))
-    gmax = acc.abs().max() + 1e-30
-    coarse = gmax * torch.exp2(-torch.arange(49, dtype=torch.float32,
-                                             device=g.device))
-    lo, hi = ops._solve_threshold(ref.ref_magnitude_hist(acc, coarse),
-                                  coarse, k)
-    frac = torch.arange(129, dtype=torch.float32, device=g.device) / 128
-    fine = torch.clamp(hi - (hi - lo) * frac, min=1e-30)
-    for name, e in (("coarse", coarse), ("fine", fine)):
-        diff = (magnitude_hist(g, e).long()
+    def exact(g, e, what):
+        nonlocal n
+        diff = (mh.magnitude_hist(g, e).long()
                 - ref.ref_magnitude_hist(g, e).long()).abs().max().item()
         if diff:
-            fail(f"magnitude_hist {name} {what}: counts differ by {diff}")
-    return coarse, fine, ops.solve_threshold(acc, k)
+            fail(f"magnitude_hist {what}: counts differ by {diff}")
+        n += 1
+
+    def spread(n_edges, top=30.0):
+        """n_edges positive descending edges from `top` down by 2^-40."""
+        j = torch.arange(n_edges, dtype=torch.float32, device=dev)
+        return top * torch.exp2(-j * (40.0 / max(1, n_edges - 1)))
+
+    dtypes = (torch.float32, torch.bfloat16)
+    for dtype in dtypes:
+        base = vec(40_003, 11, dev).to(dtype)
+        for off in (1, 2, 3):
+            g = base[off:off + 40_000]
+            if g.storage_offset() != off:
+                fail(f"view at offset {off} has storage_offset "
+                     f"{g.storage_offset()}")
+            check_hist(g, f"offset {off} {dtype}")
+            n += 2
+        for d in (1, 3, 4097):
+            check_hist(vec(d, d, dev).to(dtype),
+                       f"d={d} {dtype}")
+            n += 2
+        # non-finite entries, in the head, body and tail of an offset view
+        g = vec(40_001, 12, dev)
+        g[[1, 777, 30_001]] = math.nan
+        g[[2, 4096, 40_000]] = math.inf
+        g[[3, 39_999]] = -math.inf
+        g = g.to(dtype)[1:]
+        for e in (spread(49), spread(129)):
+            exact(g, e, f"non-finite {dtype}")
+        for ne in (1, mh.MAX_EDGES):
+            exact(vec(40_000, 13, dev).to(dtype), spread(ne),
+                  f"{ne} edges {dtype}")
+    exact(vec(D_CNN, 14, dev), spread(mh.MAX_EDGES),
+          f"{mh.MAX_EDGES} edges d={D_CNN}")
+    # ten calls back to back, compared only after all are queued
+    runs = []
+    for i in range(10):
+        g = vec(POD_NBL * POD_BLK + 97 * i, 20 + i, dev)
+        e = spread((49, 129, 1, mh.MAX_EDGES, 7)[i % 5])
+        runs.append((g, e, mh.magnitude_hist(g, e)))
+    for i, (g, e, got) in enumerate(runs):
+        if not torch.equal(got, ref.ref_magnitude_hist(g, e)):
+            fail(f"magnitude_hist back-to-back call {i} differs")
+        n += 1
+    if dev != "cuda":
+        return n
+    g, e = vec(D_CNN, 15), spread(49)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = mh.magnitude_hist(g, e)
+    torch.cuda.current_stream().wait_stream(side)
+    if not torch.equal(got, ref.ref_magnitude_hist(g, e)):
+        fail("magnitude_hist on a second stream differs")
+    n += 1
+    if len({k for k in mh._WORKSPACES if k[0] == g.device.index}) < 2:
+        fail("the second stream did not get its own workspace")
+    # one call, one kernel: no fill, no second kernel
+    from repro_torch.obs.profiling import device_profile
+    torch.cuda.synchronize()
+    with device_profile() as prof:
+        mh.magnitude_hist(g, e)
+        torch.cuda.synchronize()
+    # "Activity Buffer Request" is the tracer's own bookkeeping, not work
+    on_card = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.name != "Activity Buffer Request"]
+    if len(on_card) != 1 or "hist_kernel" not in on_card[0]:
+        fail(f"one magnitude_hist call put {on_card} on the card")
+    log(f"[kernels] one magnitude_hist call = one device kernel: {on_card}")
+    return n
 
 
 # ------------------------------------------------------------------- phases
@@ -172,15 +219,17 @@ def phase_kernels(torch) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.ef_topk import ef_topk
     from repro_torch.kernels.fused_momentum import fused_momentum
+    from repro_torch.kernels.checks import check_hist, vec
     from repro_torch.kernels.magnitude_hist import magnitude_hist
+    from repro_torch.obs.profiling import time_ms
 
     # magnitude_hist is held to exact counts (check_hist fails otherwise)
     err = {"magnitude_hist": 0.0, "ef_topk": 0.0, "fused_momentum": 0.0}
     for d in SIZES:
         for dtype in (torch.float32, torch.bfloat16):
-            g = vec(torch, d, d).to(dtype)
-            r = (vec(torch, d, d + 1) * 0.1).to(dtype)
-            _, _, t = check_hist(torch, g, f"d={d} {dtype}")
+            g = vec(d, d).to(dtype)
+            r = (vec(d, d + 1) * 0.1).to(dtype)
+            _, _, t = check_hist(g, f"d={d} {dtype}")
             # ef_topk: bitwise out / residual / nnz, and conservation
             out, res, nnz = ef_topk(g, r, t)
             ro, rr, rn = ref.ref_ef_topk(g, r, t)
@@ -191,8 +240,8 @@ def phase_kernels(torch) -> dict:
             if dtype == torch.float32 and not torch.equal(out + res, g + r):
                 fail(f"ef_topk d={d}: out + r' != g + r")
             # fused_momentum: rtol 2e-5 / atol 1e-6 (the reference's own)
-            w, gg = vec(torch, d, d + 2).to(dtype), vec(torch, d, d + 3)
-            mu = vec(torch, d, d + 4)
+            w, gg = vec(d, d + 2).to(dtype), vec(d, d + 3)
+            mu = vec(d, d + 4)
             rw, rmu = ref.ref_fused_momentum(w, mu, gg.to(dtype), lr=0.05,
                                              momentum=0.9)
             fused_momentum(w, mu, gg.to(dtype), lr=0.05, momentum=0.9)
@@ -203,38 +252,49 @@ def phase_kernels(torch) -> dict:
                 if not torch.allclose(a32, b32, rtol=2e-5, atol=1e-6):
                     fail(f"fused_momentum {what} d={d} {dtype}: max abs "
                          f"err {e}")
+    n_cases = check_hist_cases(torch)
     torch.cuda.synchronize()
     log(f"[kernels] all three agree with their plain versions at d in "
-        f"{SIZES}, f32 and bf16 inputs")
+        f"{SIZES}, f32 and bf16 inputs; magnitude_hist exact in {n_cases} "
+        f"more calls (offset views, odd lengths, non-finite entries, 1 and "
+        f"1024 edges, back to back, a second stream)")
 
     # timings at the cnn width, f32
     d = D_CNN
-    g, r = vec(torch, d, 1), vec(torch, d, 2) * 0.1
-    coarse, fine, t = check_hist(torch, g, f"d={d} timed")
-    w, mu = vec(torch, d, 3), vec(torch, d, 4)
+    g, r = vec(d, 1), vec(d, 2) * 0.1
+    coarse, fine, t = check_hist(g, f"d={d} timed")
+    w, mu = vec(d, 3), vec(d, 4)
     p = torch.nn.Parameter(w.clone())
     p.grad = g.clone()
     sgd = torch.optim.SGD([p], lr=0.05, momentum=0.9, fused=True)
     f4 = 4
     rows = {}
-    ms = time_ms(torch, lambda: magnitude_hist(g, coarse))
-    ms_fine = time_ms(torch, lambda: magnitude_hist(g, fine))
+    ms = time_ms(lambda: magnitude_hist(g, coarse))
+    ms_fine = time_ms(lambda: magnitude_hist(g, fine))
     rows["magnitude_hist"] = dict(
-        ms=ms, plain_ms=time_ms(torch, lambda: ref.ref_magnitude_hist(
+        ms=ms, plain_ms=time_ms(lambda: ref.ref_magnitude_hist(
             g, coarse)), library_ms=None,
         bound=bound(f4 * d + 2 * f4 * coarse.numel(),
                     d * (1 + math.log2(coarse.numel()))))
     log(f"[time] magnitude_hist fine pass (129 edges): {ms_fine:.6f} ms")
+    shard = vec(POD_NBL * POD_BLK, 5)
+    s_coarse, s_fine, _ = check_hist(shard, "pod shard timed",
+                                     POD_NBL * POD_BUDGET)
+    s_ms = [time_ms(lambda: magnitude_hist(shard, e))
+            for e in (s_coarse, s_fine)]
+    log(f"[time] magnitude_hist pod shard (d = {shard.numel()}): coarse "
+        f"(49 edges) {s_ms[0]:.6f} ms, fine (129 edges) {s_ms[1]:.6f} ms, "
+        f"bound {bound(f4 * shard.numel(), 0)[0]:.6f} ms")
     rows["ef_topk"] = dict(
-        ms=time_ms(torch, lambda: ef_topk(g, r, t)),
-        plain_ms=time_ms(torch, lambda: ref.ref_ef_topk(g, r, t)),
+        ms=time_ms(lambda: ef_topk(g, r, t)),
+        plain_ms=time_ms(lambda: ref.ref_ef_topk(g, r, t)),
         library_ms=None, bound=bound(4 * f4 * d + 8, 4 * d))
     rows["fused_momentum"] = dict(
-        ms=time_ms(torch, lambda: fused_momentum(w, mu, g, lr=0.05,
+        ms=time_ms(lambda: fused_momentum(w, mu, g, lr=0.05,
                                                  momentum=0.9)),
-        plain_ms=time_ms(torch, lambda: ref.ref_fused_momentum(
+        plain_ms=time_ms(lambda: ref.ref_fused_momentum(
             w, mu, g, lr=0.05, momentum=0.9)),
-        library_ms=time_ms(torch, sgd.step),
+        library_ms=time_ms(sgd.step),
         bound=bound(5 * f4 * d, 4 * d))
     for name, row in rows.items():
         row["max_abs_err"] = err[name]
@@ -246,32 +306,13 @@ def phase_kernels(torch) -> dict:
     return rows
 
 
-def check_compact(torch, acc, t, budget: int, what: str) -> float:
-    """compact_blocks against its plain version: all four outputs bit for
-    bit (floats compared as their int32 bit patterns)."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.compact_topk import compact_blocks
-    got = compact_blocks(acc, t, budget=budget)
-    want = ref.ref_compact_blocks(acc, t, budget)
-    err = 0.0
-    for g, w, name in zip(got, want, ("vals", "idx", "cnt", "res")):
-        if g.shape != w.shape or g.dtype != w.dtype:
-            fail(f"compact_blocks {what} {name}: {g.dtype} {tuple(g.shape)} "
-                 f"vs plain {w.dtype} {tuple(w.shape)}")
-        if g.dtype == torch.float32:
-            err = max(err, (g - w).abs().max().item() if g.numel() else 0.0)
-            g, w = g.view(torch.int32), w.view(torch.int32)
-        if not torch.equal(g, w):
-            fail(f"compact_blocks {what}: {name} differs from the plain "
-                 f"version")
-    return err
-
-
 def phase_compact(torch, dev: str = "cuda") -> dict:
     """compact_blocks bitwise on the reference's sweep and the pod path's
     shard, then timed at the shard [813, 1024], budget 10."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.checks import check_compact, check_hist
     from repro_torch.kernels.compact_topk import compact_blocks
+    from repro_torch.obs.profiling import time_ms
     import numpy as np
 
     def blocked(nb, blk, seed):
@@ -285,22 +326,43 @@ def phase_compact(torch, dev: str = "cuda") -> dict:
         for budget in (1, 5, 32):
             acc = blocked(nb, blk, nb * blk + budget)
             t = acc.abs().median() * 2
-            err = max(err, check_compact(torch, acc, t, budget,
+            err = max(err, check_compact(acc, t, budget,
                                          f"{nb}x{blk} budget {budget}"))
             n += 1
     acc = blocked(POD_NBL, POD_BLK, 7)
     # the shard's threshold solve, as compact_shard_topk runs it
-    _, _, t_path = check_hist(torch, acc.reshape(-1),
+    _, _, t_path = check_hist(acc.reshape(-1),
                               f"{POD_NBL}x{POD_BLK} shard",
                               POD_NBL * POD_BUDGET)
     for name, t in (("path t", t_path), ("t=0", 0.0), ("t=inf", math.inf),
                     ("2x median", acc.abs().median() * 2)):
-        err = max(err, check_compact(torch, acc, t, POD_BUDGET,
+        err = max(err, check_compact(acc, t, POD_BUDGET,
                                      f"{POD_NBL}x{POD_BLK} {name}"))
         n += 1
     for t in (0.0, math.inf):
-        err = max(err, check_compact(torch, blocked(4, 64, 3), t, 8,
+        err = max(err, check_compact(blocked(4, 64, 3), t, 8,
                                      f"4x64 t={t}"))
+        n += 1
+    # the redesigned kernel's own paths: blocks shorter than one
+    # super-chunk of 1024 and several super-chunks long, budget = blk, rows
+    # that are not 16-byte aligned (scalar loads), non-finite entries
+    for blk in (100, 1000, 2048, 4096, 10_000):
+        a = blocked(5, blk, blk)
+        for budget in (10, blk):
+            err = max(err, check_compact(a, a.abs().median() * 2,
+                                         budget, f"5x{blk} budget {budget}"))
+            n += 1
+    for nb, blk in ((8, 1024), (5, 100), (3, 4096), (2, 10_000)):
+        a = blocked(1, 1 + nb * blk, nb + blk).reshape(-1)[1:].view(nb, blk)
+        err = max(err, check_compact(a, a.abs().median() * 2, 10,
+                                     f"{nb}x{blk} at offset 1"))
+        n += 1
+    a = blocked(6, 1024, 9)
+    t2 = a.abs().median() * 2
+    a[:, 600], a[:, 700], a[:, 800] = math.inf, -math.inf, math.nan
+    a[0, 0], a[1, 1], a[2, 2] = math.nan, math.inf, -math.inf
+    for name, t in (("t=0", 0.0), ("2x median", t2), ("t=inf", math.inf)):
+        err = max(err, check_compact(a, t, 10, f"non-finite {name}"))
         n += 1
     log(f"[compact] compact_blocks bitwise equal to its plain version in "
         f"{n} cases (max abs err {err}); the {POD_NBL}x{POD_BLK} shard's "
@@ -309,9 +371,9 @@ def phase_compact(torch, dev: str = "cuda") -> dict:
         return {"max_abs_err": err}
     nbytes = 2 * 4 * acc.numel() + 8 * POD_NBL * POD_BUDGET + 4 * POD_NBL
     return dict(
-        ms=time_ms(torch, lambda: compact_blocks(acc, t_path,
+        ms=time_ms(lambda: compact_blocks(acc, t_path,
                                                  budget=POD_BUDGET)),
-        plain_ms=time_ms(torch, lambda: ref.ref_compact_blocks(
+        plain_ms=time_ms(lambda: ref.ref_compact_blocks(
             acc, t_path, POD_BUDGET)),
         library_ms=None, bound=bound(nbytes, 2 * acc.numel()),
         max_abs_err=err)
@@ -441,15 +503,11 @@ def _padded(torch, flat, nb: int, blk: int):
     return pb.view(nb, blk)
 
 
-def _bits_equal(torch, a, b) -> bool:
-    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
-                                              b.contiguous().view(torch.int32))
-
-
 def phase_pod(torch, dev: str = "cuda") -> dict:
     """The 4-pod datacenter round at full cnn width; returns the launch
     counts of its 3 compact rounds."""
     from repro_torch.dist import collectives as col
+    from repro_torch.kernels.checks import bits_equal
     from repro_torch.launch.profile_pod import (LOCAL_K, MESH, RATE,
                                                 build_pod_round)
 
@@ -494,7 +552,7 @@ def phase_pod(torch, dev: str = "cuda") -> dict:
             fail(f"pod round {rnd}: launches {c}, expected {want}")
         acc = seen[rnd] + res
         kept = acc - new_res
-        if not _bits_equal(torch, kept + new_res, acc):
+        if not bits_equal(kept + new_res, acc):
             fail(f"pod round {rnd}: kept + r' != delta + r")
         live = (kept != 0).sum(dim=-1)
         if int(live.max()) > POD_BUDGET:
@@ -517,7 +575,7 @@ def phase_pod(torch, dev: str = "cuda") -> dict:
             fail(f"pod gate round {rnd}: compact params differ from the "
                  f"reference wire's (max abs "
                  f"{(p_c - p_r).abs().max().item()})")
-        if not _bits_equal(torch, r_c, r_r):
+        if not bits_equal(r_c, r_r):
             fail(f"pod gate round {rnd}: residuals differ from the "
                  f"reference wire's")
     log(f"[pod] gate: compact == reference wire over {POD_ROUNDS} carried "
@@ -547,6 +605,7 @@ def phase_podparity(torch, dev: str = "cuda") -> None:
     """mlp_micro local rounds and syncs on the card against the CPU."""
     from repro_torch.core import compression as C
     from repro_torch.dist import collectives as col, steps
+    from repro_torch.kernels.checks import bits_equal
     from repro_torch.launch.profile_pod import TaskLM, pod_batches, pod_blocks
     from repro_torch.models.small import make_task
     from repro_torch.optim import momentum_sgd
@@ -588,7 +647,7 @@ def phase_podparity(torch, dev: str = "cuda") -> None:
     for rnd in range(2):       # the second sync carries a live residual
         pc, rc = sync(pc, d_card, rc)
         ph, rh = sync(ph, d_card.cpu(), rh)
-        if not _bits_equal(torch, rc.cpu(), rh):
+        if not bits_equal(rc.cpu(), rh):
             fail(f"podparity sync {rnd}: residuals differ card vs CPU")
         if not torch.allclose(pc.cpu(), ph, rtol=1e-5, atol=1e-6):
             fail(f"podparity sync {rnd}: params differ card vs CPU")
@@ -606,15 +665,19 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.kernels.checks import CheckFailed
 
     t0 = time.perf_counter()
-    phase_build(torch)
-    rows = phase_kernels(torch)
-    fm = phase_cli(torch)
-    th = phase_threshold(torch)
-    phase_parity(torch)
-    pod = phase_pod(torch)
-    phase_podparity(torch)
+    try:
+        phase_build(torch)
+        rows = phase_kernels(torch)
+        fm = phase_cli(torch)
+        th = phase_threshold(torch)
+        phase_parity(torch)
+        pod = phase_pod(torch)
+        phase_podparity(torch)
+    except CheckFailed as e:
+        fail(str(e))
     launches = {"fused_momentum": fm, "ef_topk": th["ef_topk"],
                 "magnitude_hist": th["magnitude_hist"],
                 "compact_blocks": pod["compact_blocks"]}

@@ -1,0 +1,90 @@
+"""Checks of the pod-sync kernels against their plain versions, shared by
+`chip_smoke.py` and `launch/profile_kernels.py`.
+
+`check_hist` builds the two edge sets of the threshold solve (49 coarse
+edges, then 129 fine edges between the coarse bracket) for top-k of a
+vector and holds `magnitude_hist` to exact counts on both;
+`check_compact` holds `compact_blocks` to its plain version bit for bit
+on all four outputs. Each takes the kernel wrapper to check (default: this
+package's), so a measurement can hold another tree's kernels to the same
+plain versions. A mismatch raises `CheckFailed`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops, ref
+
+
+class CheckFailed(AssertionError):
+    """A kernel disagreed with its plain version."""
+
+
+def vec(d: int, seed: int, device="cuda") -> torch.Tensor:
+    """A heavy-tailed f32 vector of d entries (a normal times a log-normal,
+    as gradient magnitudes are), made from `seed` with numpy."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(d).astype(np.float32) * np.exp(rng.randn(d)).astype(
+        np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape and the same 32-bit patterns (NaN payloads and the sign
+    of zero included)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def check_hist(g: torch.Tensor, what: str, k: int | None = None,
+               hist=None):
+    """The coarse (49) and fine (129) edges the threshold solve uses on g
+    for top-k (k = 1% of g by default), each pass of `hist` (default
+    `magnitude_hist`) held to exact counts against the plain version;
+    returns (coarse, fine, t) with t the solve's threshold."""
+    if hist is None:
+        from repro_torch.kernels.magnitude_hist import magnitude_hist as hist
+    acc = g.float()
+    k = k or max(1, round(0.01 * acc.numel()))
+    gmax = acc.abs().max() + 1e-30
+    coarse = gmax * torch.exp2(-torch.arange(49, dtype=torch.float32,
+                                             device=g.device))
+    lo, hi = ops._solve_threshold(ref.ref_magnitude_hist(acc, coarse),
+                                  coarse, k)
+    frac = torch.arange(129, dtype=torch.float32, device=g.device) / 128
+    fine = torch.clamp(hi - (hi - lo) * frac, min=1e-30)
+    for name, e in (("coarse", coarse), ("fine", fine)):
+        diff = (hist(g, e).long()
+                - ref.ref_magnitude_hist(g, e).long()).abs().max().item()
+        if diff:
+            raise CheckFailed(f"magnitude_hist {name} {what}: counts differ "
+                              f"by {diff}")
+    return coarse, fine, ops.solve_threshold(acc, k)
+
+
+def check_compact(acc: torch.Tensor, t, budget: int, what: str,
+                  compact=None) -> float:
+    """`compact` (default `compact_blocks`) against the plain version: all
+    four outputs bit for bit (floats compared as their int32 patterns).
+    Returns the largest absolute difference of the float outputs (0.0 when
+    they agree)."""
+    if compact is None:
+        from repro_torch.kernels.compact_topk import compact_blocks as compact
+    got = compact(acc, t, budget=budget)
+    want = ref.ref_compact_blocks(acc, t, budget)
+    err = 0.0
+    for g, w, name in zip(got, want, ("vals", "idx", "cnt", "res")):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise CheckFailed(f"compact_blocks {what} {name}: {g.dtype} "
+                              f"{tuple(g.shape)} vs plain {w.dtype} "
+                              f"{tuple(w.shape)}")
+        if g.dtype == torch.float32:
+            err = max(err, (g - w).abs().max().item() if g.numel() else 0.0)
+            same = bits_equal(g, w)
+        else:
+            same = torch.equal(g, w)
+        if not same:
+            raise CheckFailed(f"compact_blocks {what}: {name} differs from "
+                              f"the plain version")
+    return err

@@ -14,14 +14,19 @@ Padding slots carry (0.0, 0); survivors past the budget stay in the
 residual and ship next round.
 
 Route: CUDA C++ (`csrc/compact_blocks.cu`, built for sm_90a by `_build`,
-bound with ctypes). The work is a per-block prefix scan with scattered
-writes: one CTA per block, warp ballots and a scan of per-warp totals give
-each survivor its slot (the TPU version's one-hot MXU dot has no place
-here). t is a device tensor, as in `ef_topk`.
+bound with ctypes). One CTA of 128 threads per block, walked in
+super-chunks of 1024 elements (one at the pod path's blk 1024); each
+thread owns a contiguous run of 8 elements, loads it as two float4s,
+counts its survivors, and one block-wide exclusive scan in thread order
+(warp shuffles plus a scan of the warp totals, one barrier) gives each
+survivor its slot (the TPU version's one-hot MXU dot has no place here);
+a running count carries from one super-chunk to the next. A length that
+is not a multiple of 4 or a row that is not 16-byte aligned takes the
+same kernel with scalar loads. t is a device tensor, as in `ef_topk`.
 
 Bound on an H100: one read of acc and one write of the residual plus the
 payload — 6,728,388 bytes at the pod path's shard [813, 1024], budget 10
-(about 2.0 us at 3.35 TB/s).
+(2.0 us at 3.35 TB/s).
 
 A CPU tensor goes through `ref.ref_compact_blocks`; a CUDA tensor launches
 the kernel or raises.
@@ -85,16 +90,23 @@ def compact_blocks(acc: torch.Tensor, threshold: torch.Tensor | float, *,
     res = torch.empty_like(acc)
     if nb == 0:
         return vals, idx, cnt, res
-    lib = _lib()
     with torch.cuda.device(dev):
-        err = lib.repro_compact_blocks(
-            acc.data_ptr(), nb, blk, threshold.data_ptr(), budget,
-            vals.data_ptr(), idx.data_ptr(),
-            cnt.data_ptr(), res.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        _launch(acc, threshold, budget, (vals, idx, cnt, res),
+                torch.cuda.current_stream(dev))
+    return vals, idx, cnt, res
+
+
+def _launch(acc, threshold, budget: int, outs, stream) -> None:
+    """One kernel launch on `stream` into outs = (vals, idx, cnt, res)."""
+    lib = _lib()
+    nb, blk = acc.shape
+    vals, idx, cnt, res = outs
+    err = lib.repro_compact_blocks(
+        acc.data_ptr(), nb, blk, threshold.data_ptr(), budget,
+        vals.data_ptr(), idx.data_ptr(), cnt.data_ptr(), res.data_ptr(),
+        stream.cuda_stream)
     _build.check_cuda(lib, err, "compact_blocks launch")
     compact_blocks.launches += 1
-    return vals, idx, cnt, res
 
 
 compact_blocks.launches = 0

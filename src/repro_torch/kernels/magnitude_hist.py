@@ -6,13 +6,21 @@ strictly positive, non-increasing edges. Route: CUDA C++
 (`csrc/magnitude_hist.cu`, built for sm_90a by `_build`, bound with
 ctypes).
 
-Bound on an H100: one read of g — 4·d bytes in f32 (6.65 MB, about 2 us
-at 3.35 TB/s, at the cnn width d = 1,663,370). The design places each
-element once (a binary search into the edges held in shared memory, one
-shared-memory atomicAdd into a per-block int32 histogram), flushes each
-block's bins with one global atomicAdd per bin, and scans the bins into
-counts_ge in a second one-warp kernel; it never builds the reference's
-[block x n_edges] compare matrix. Counts are int32.
+Bound on an H100: one read of g — 4·d bytes in f32 (6.65 MB, 1.99 us at
+3.35 TB/s, at the cnn width d = 1,663,370; 0.99 us at a pod shard,
+d = 832,512). One launch per call: the kernel binary-searches each element
+into the edges held in shared memory, adds it to its lane's copy of the
+CTA's bins (one conflict-free shared atomic per element), flushes each
+CTA's bins to a zeroed int32 workspace with global atomics, and the CTA
+that finishes last scans the bins into counts_ge and zeroes the workspace
+again. g is read as 16-byte vectors (several in flight per thread) between
+a scalar head and tail (`vector_split`); the library sizes the grid from
+the card's SM count. Counts are int32; NaN never counts.
+
+The wrapper keeps one workspace (MAX_EDGES + 1 int32, zeroed when it is
+made) per (device, stream), so calls on different streams never share
+one. A launch that returns an error discards its workspace before the
+wrapper raises.
 
 A CPU tensor goes through `ref.ref_magnitude_hist`; a CUDA tensor launches
 the kernel or raises.
@@ -30,24 +38,70 @@ from repro_torch.kernels.ref import ref_magnitude_hist
 
 MAX_EDGES = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+VEC_BYTES = 16          # bytes per vector load
+
+# (device index, stream handle) -> int32[MAX_EDGES + 1], zero between calls
+_WORKSPACES: dict[tuple, torch.Tensor] = {}
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load_library("magnitude_hist")
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel's library. `defines` (NAME or NAME=VALUE, nvcc's -D)
+    build a variant of it for measurement (`launch.profile_kernels
+    --variants`)."""
+    lib = _build.load_library("magnitude_hist", defines)
     lib.repro_magnitude_hist.restype = ctypes.c_int
     lib.repro_magnitude_hist.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _max_blocks(index: int) -> int:
-    # a few resident 256-thread blocks per SM; the grid-stride loop covers
-    # the rest of the vector
-    return 8 * torch.cuda.get_device_properties(index).multi_processor_count
+def vector_split(ptr: int, n: int, itemsize: int) -> tuple[int, int, int]:
+    """(head, nvec, tail) for n elements of `itemsize` bytes at address
+    `ptr`: `head` scalars up to the first 16-byte boundary, `nvec` 16-byte
+    vectors, then `tail` scalars (head, tail < 16 / itemsize)."""
+    head = min(n, (-ptr % VEC_BYTES) // itemsize)
+    nvec = (n - head) // (VEC_BYTES // itemsize)
+    return head, nvec, n - head - nvec * (VEC_BYTES // itemsize)
+
+
+def _workspace_key(device: torch.device, stream) -> tuple:
+    return device.index, stream.cuda_stream
+
+
+def _workspace(device: torch.device, stream) -> torch.Tensor:
+    """The zeroed int32[MAX_EDGES + 1] workspace of (device, stream), made
+    on first use (the caller has `stream` current, so the zero-fill is
+    ordered before the first launch on it)."""
+    key = _workspace_key(device, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = _WORKSPACES[key] = torch.zeros(MAX_EDGES + 1, dtype=torch.int32,
+                                            device=device)
+    return ws
+
+
+def _launch(g: torch.Tensor, edges: torch.Tensor, stream,
+            lib: ctypes.CDLL | None = None) -> torch.Tensor:
+    """One kernel launch on `stream` (current on g's device), from `lib`
+    (default `_lib()`)."""
+    lib = _lib() if lib is None else lib
+    n_edges = edges.numel()
+    ws = _workspace(g.device, stream)
+    counts = torch.empty(n_edges, dtype=torch.int32, device=g.device)
+    head, nvec, tail = vector_split(g.data_ptr(), g.numel(), g.element_size())
+    err = lib.repro_magnitude_hist(
+        g.data_ptr(), head, nvec, tail, _DTYPE_CODE[g.dtype],
+        edges.data_ptr(), n_edges, ws.data_ptr(), counts.data_ptr(),
+        g.device.index or 0, stream.cuda_stream)
+    if err:
+        # the launch never ran; drop the workspace rather than trust it
+        _WORKSPACES.pop(_workspace_key(g.device, stream), None)
+    _build.check_cuda(lib, err, "magnitude_hist launch")
+    magnitude_hist.launches += 1
+    return counts
 
 
 def magnitude_hist(g: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
@@ -61,18 +115,8 @@ def magnitude_hist(g: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"magnitude_hist: {n_edges} edges, need 1..{MAX_EDGES}")
     if g.device.type == "cpu":
         return ref_magnitude_hist(g, edges)
-    lib = _lib()
-    bins = torch.zeros(n_edges, dtype=torch.int32, device=g.device)
-    counts = torch.empty(n_edges, dtype=torch.int32, device=g.device)
     with torch.cuda.device(g.device):
-        err = lib.repro_magnitude_hist(
-            g.data_ptr(), g.numel(), _DTYPE_CODE[g.dtype], edges.data_ptr(),
-            n_edges, bins.data_ptr(), counts.data_ptr(),
-            _max_blocks(g.device.index or 0),
-            torch.cuda.current_stream(g.device).cuda_stream)
-    _build.check_cuda(lib, err, "magnitude_hist launch")
-    magnitude_hist.launches += 1
-    return counts
+        return _launch(g, edges, torch.cuda.current_stream(g.device))
 
 
 magnitude_hist.launches = 0

@@ -16,12 +16,15 @@ null context — one module-level predicate per call, no allocation.
 
 `device_profile()` and `device_breakdown(prof, wall_s)` are the launch
 profilers' shared capture and summary: device-busy seconds, the idle
-share of a wall time, and the top device entries.
+share of a wall time, and the top device entries. `time_ms(fn)` is the
+per-launch device time of one kernel call (`chip_smoke.py`,
+`launch/profile_kernels.py`).
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import statistics
 import time
 
 _PROFILE = os.environ.get("REPRO_PROFILE", "") not in ("", "0", "false")
@@ -54,6 +57,30 @@ def device_profile():
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     return torch.profiler.profile(activities=acts)
+
+
+def time_ms(fn, *, iters: int = 30, warmup: int = 5) -> float:
+    """Median per-launch device time of `fn` in ms (CUDA events around
+    each call, on the current CUDA device), with a 96 MB buffer zeroed
+    before every timed call to flush the 50 MB L2. A sleep kernel first
+    holds the stream so the host enqueues every launch ahead of the
+    device: the events then time the device, not Python."""
+    import torch
+    flush = torch.empty(96 * 2 ** 20 // 4, dtype=torch.float32,
+                        device="cuda")
+    for _ in range(warmup):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)       # ~25 ms at the SM clock
+    for s, e in zip(starts, ends):
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
 def device_breakdown(prof, wall_s: float, top: int = 15) -> dict:

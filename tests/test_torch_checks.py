@@ -1,0 +1,187 @@
+"""The kernel checks and measurement plumbing shared by `chip_smoke.py` and
+`launch/profile_kernels.py`: `repro_torch.kernels.checks` against the JAX
+package's threshold solve and Pallas histogram (interpret mode), and that
+each check fails on a kernel that is wrong; `_build`'s build variants; and
+the loader that puts another tree's kernel wrappers beside this tree's.
+No card is needed."""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.magnitude_hist import magnitude_hist as j_hist  # noqa: E402
+
+from repro_torch.kernels import _build, checks, ref  # noqa: E402
+from repro_torch.kernels.compact_topk import compact_blocks  # noqa: E402
+from repro_torch.kernels.magnitude_hist import magnitude_hist  # noqa: E402
+from repro_torch.launch import profile_kernels  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _ulps(a: float, b: float) -> int:
+    ia = np.array(a, dtype=np.float32).view(np.int32)
+    ib = np.array(b, dtype=np.float32).view(np.int32)
+    return abs(int(ia) - int(ib))
+
+
+class TestVec:
+    @pytest.mark.parametrize("d", [1, 127, 4097])
+    def test_seeded_heavy_tailed_f32(self, d):
+        a, b = checks.vec(d, 3, "cpu"), checks.vec(d, 3, "cpu")
+        assert a.dtype == torch.float32 and a.shape == (d,)
+        assert torch.equal(a, b)
+        assert not torch.equal(a, checks.vec(d, 4, "cpu")) or d == 1
+
+    def test_is_the_numpy_recipe(self):
+        rng = np.random.RandomState(9)
+        x = rng.randn(50).astype(np.float32) * np.exp(rng.randn(50)).astype(
+            np.float32)
+        np.testing.assert_array_equal(checks.vec(50, 9, "cpu").numpy(), x)
+
+
+class TestBitsEqual:
+    @pytest.mark.parametrize("a,b,want", [
+        ([1.0, 2.0], [1.0, 2.0], True),
+        ([0.0], [-0.0], False),                 # equal as floats, not bits
+        ([float("nan")], [float("nan")], True),  # one canonical NaN
+        ([1.0, 2.0], [1.0, 2.5], False),
+        ([1.0, 2.0], [[1.0, 2.0]], False),      # shapes differ
+    ])
+    def test_cases(self, a, b, want):
+        assert checks.bits_equal(torch.tensor(a), torch.tensor(b)) is want
+
+    def test_non_contiguous(self):
+        x = torch.arange(12, dtype=torch.float32).view(3, 4)
+        assert checks.bits_equal(x.t(), x.t().contiguous())
+
+
+class TestCheckHist:
+    @pytest.mark.parametrize("d", [127, 40_000])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_edges_and_threshold_match_jax(self, d, dtype):
+        """The check's edges are the JAX solve's, its counts the Pallas
+        kernel's, and its threshold within one ulp of the JAX solve's."""
+        g = checks.vec(d, d, "cpu").to(dtype)
+        k = max(1, round(0.01 * d))
+        coarse, fine, t = checks.check_hist(g, "cpu")
+        assert coarse.shape == (49,) and fine.shape == (129,)
+        jg = jnp.asarray(g.float().numpy())
+        gmax = jnp.max(jnp.abs(jg)) + 1e-30
+        jcoarse = gmax * 2.0 ** (-jnp.arange(49, dtype=jnp.float32))
+        np.testing.assert_array_equal(coarse.numpy(), np.asarray(jcoarse))
+        for e in (coarse, fine):
+            want = j_hist(jg, jnp.asarray(e.numpy()), block=2048,
+                          interpret=True)
+            np.testing.assert_array_equal(
+                magnitude_hist(g, e).numpy(),
+                np.asarray(want).astype(np.int64))
+        tj = float(jops.solve_threshold(jg, k, interpret=True))
+        assert _ulps(float(t), tj) <= 1
+
+    @pytest.mark.parametrize("broken", [0, 1])
+    def test_fails_on_a_wrong_pass(self, broken):
+        """A histogram off by one in either pass is caught."""
+        seen = []
+
+        def hist(g, e):
+            c = ref.ref_magnitude_hist(g, e)
+            seen.append(1)
+            return c + 1 if len(seen) - 1 == broken else c
+        with pytest.raises(checks.CheckFailed,
+                           match=("coarse", "fine")[broken]):
+            checks.check_hist(checks.vec(1000, 1, "cpu"), "x", hist=hist)
+
+    def test_takes_the_given_kernel(self):
+        calls = []
+
+        def hist(g, e):
+            calls.append(e.numel())
+            return magnitude_hist(g, e)
+        checks.check_hist(checks.vec(500, 2, "cpu"), "x", 7, hist=hist)
+        assert calls == [49, 129]
+
+
+class TestCheckCompact:
+    def test_plain_version_agrees(self):
+        acc = checks.vec(4 * 256, 5, "cpu").view(4, 256)
+        t = acc.abs().median() * 2
+        assert checks.check_compact(acc, t, 8, "cpu") == 0.0
+
+    @pytest.mark.parametrize("which", [0, 1, 2, 3])
+    def test_fails_on_a_wrong_output(self, which):
+        def compact(acc, t, *, budget):
+            outs = list(compact_blocks(acc, t, budget=budget))
+            outs[which] = outs[which].clone()
+            outs[which].view(-1)[0] += 1
+            return tuple(outs)
+        acc = checks.vec(2 * 64, 6, "cpu").view(2, 64)
+        with pytest.raises(checks.CheckFailed,
+                           match=("vals", "idx", "cnt", "res")[which]):
+            checks.check_compact(acc, 0.0, 4, "x", compact=compact)
+
+    def test_fails_on_the_sign_of_zero(self):
+        """Bitwise, not by value: a residual of -0.0 where the plain
+        version has +0.0 is a difference."""
+        def compact(acc, t, *, budget):
+            vals, idx, cnt, res = compact_blocks(acc, t, budget=budget)
+            return vals, idx, cnt, torch.where(res == 0, -0.0, res)
+        acc = checks.vec(2 * 64, 7, "cpu").view(2, 64)
+        with pytest.raises(checks.CheckFailed, match="res"):
+            checks.check_compact(acc, 0.0, 4, "x", compact=compact)
+
+
+class TestBuildVariants:
+    def test_defines_become_nvcc_flags(self):
+        assert _build._flags() == _build.NVCC_FLAGS
+        assert _build._flags(("LOADS=4", "HIST_MATCH_ANY"))[-2:] == (
+            "-DLOADS=4", "-DHIST_MATCH_ANY")
+
+    @pytest.mark.parametrize("name", _build.CUDA_SOURCES)
+    def test_each_variant_has_its_own_library(self, name):
+        src, plain = _build._target(name)
+        _, var = _build._target(name, ("LOADS=4",))
+        assert src.is_file() and plain != var
+        assert plain.parent == var.parent == _build.BUILD_DIR
+        assert _build._target(name, ("LOADS=4",))[1] == var
+
+    def test_variants_named_by_the_profiler_exist_in_the_source(self):
+        text = (_build.CSRC / "magnitude_hist.cu").read_text()
+        for defines in profile_kernels.VARIANTS.values():
+            for d in defines:
+                assert f"#ifdef {d.split('=')[0]}" in text \
+                    or f"#ifndef {d.split('=')[0]}" in text
+
+
+class TestTreeKernels:
+    def test_this_tree(self):
+        hist, compact = profile_kernels.tree_kernels(None)
+        assert hist is magnitude_hist and compact is compact_blocks
+
+    def test_another_tree_beside_this_one(self):
+        """Another checkout's wrappers load as separate modules, and this
+        tree's modules are the ones `sys.modules` holds afterwards."""
+        before = {k: v for k, v in sys.modules.items()
+                  if k.split(".")[0] == "repro_torch"}
+        hist, compact = profile_kernels.tree_kernels(str(SRC))
+        assert hist is not magnitude_hist and compact is not compact_blocks
+        assert Path(hist.__globals__["__file__"]).resolve() == Path(
+            sys.modules[magnitude_hist.__module__].__file__).resolve()
+        after = {k: v for k, v in sys.modules.items()
+                 if k.split(".")[0] == "repro_torch"}
+        assert after == before
+        g = checks.vec(300, 8, "cpu")
+        e = torch.tensor([2.0, 1.0, 0.5])
+        assert torch.equal(hist(g, e), magnitude_hist(g, e))
+        acc = g.view(3, 100)
+        for a, b in zip(compact(acc, 0.5, budget=5),
+                        compact_blocks(acc, 0.5, budget=5)):
+            assert checks.bits_equal(a.float(), b.float())

@@ -2,6 +2,8 @@
 built on it against the JAX package: `compact_blocks(..., interpret=True)`
 bit for bit on the reference's sweep (tests/test_kernels.py), the scatter
 rebuild property, `compact_shard_topk` and `topk_compress_sparse`."""
+import types
+
 import numpy as np
 import pytest
 
@@ -154,3 +156,86 @@ class TestChecks:
             torch.ones(2, 8, dtype=torch.bfloat16), 0.5, budget=3)
         assert calls == [1] and ct_mod.compact_blocks.launches == before
         assert vals.dtype == torch.float32       # acc is cast to f32
+
+
+class TestKernelPaths:
+    """The plain version against the JAX package where the redesigned CUDA
+    kernel has its own code paths: blocks shorter than one super-chunk of
+    1024 and several super-chunks long (blk 100 to 4096), budget = blk,
+    rows that are not 16-byte aligned (a view at a storage offset), and
+    non-finite entries; plus what the wrapper hands the kernel."""
+
+    @pytest.mark.parametrize("nb,blk,budget", [
+        (3, 100, 10), (3, 100, 100), (2, 1000, 10), (2, 1000, 1000),
+        (2, 2048, 10), (2, 2048, 64), (1, 4096, 10),
+    ])
+    def test_block_lengths_vs_jax_kernel_bitwise(self, nb, blk, budget):
+        acc = _acc(nb, blk, blk + budget)
+        t = np.float32(np.median(np.abs(acc)) * 2)
+        want = j_compact(jnp.asarray(acc), jnp.float32(t), budget=budget,
+                         interpret=True)
+        got = ct_mod.compact_blocks(torch.from_numpy(acc), torch.tensor(t),
+                                    budget=budget)
+        _assert_bitwise(got, want)
+
+    @pytest.mark.parametrize("nb,blk", [(3, 100), (2, 1024), (2, 2048)])
+    def test_offset_view_vs_jax_kernel_bitwise(self, nb, blk):
+        flat = _acc(1, 1 + nb * blk, nb + blk).reshape(-1)
+        view = torch.from_numpy(flat)[1:].view(nb, blk)
+        assert view.storage_offset() == 1
+        t = np.float32(np.median(np.abs(flat)) * 2)
+        want = j_compact(jnp.asarray(flat[1:].reshape(nb, blk)),
+                         jnp.float32(t), budget=10, interpret=True)
+        _assert_bitwise(ct_mod.compact_blocks(view, float(t), budget=10),
+                        want)
+
+    @pytest.mark.parametrize("threshold", [0.0, "2x median", np.inf])
+    def test_non_finite_vs_jax(self, threshold):
+        """All four outputs bitwise against the JAX oracle, which the port
+        follows. Against the Pallas kernel only indices and counts: its
+        one-hot MXU dot multiplies every entry of a block into every slot,
+        so one +-Inf or NaN in the block makes every value slot NaN
+        (Inf * 0), and its residual acc - acc * in_budget is NaN at +-Inf
+        entries past the budget."""
+        nb, blk, budget = 4, 256, 8
+        acc = _acc(nb, blk, 71)
+        t = np.float32(np.median(np.abs(acc)) * 2
+                       if threshold == "2x median" else threshold)
+        acc[:, 200], acc[:, 220], acc[:, 240] = np.inf, -np.inf, np.nan
+        acc[0, 0], acc[1, 1], acc[2, 2] = np.nan, np.inf, -np.inf
+        got = ct_mod.compact_blocks(torch.from_numpy(acc), torch.tensor(t),
+                                    budget=budget)
+        _assert_bitwise(got, jref.ref_compact_blocks(jnp.asarray(acc), t,
+                                                     budget))
+        pallas = j_compact(jnp.asarray(acc), jnp.float32(t), budget=budget,
+                           interpret=True)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(pallas[1]))
+        np.testing.assert_array_equal(got[2].numpy(),
+                                      np.asarray(pallas[2]).reshape(-1))
+        assert np.isnan(np.asarray(pallas[0])).all()
+
+    @pytest.mark.parametrize("err", [0, 700])
+    def test_launch_arguments(self, monkeypatch, err):
+        calls = []
+
+        def launch(*args):
+            calls.append(args)
+            return err
+        monkeypatch.setattr(ct_mod, "_lib", lambda: types.SimpleNamespace(
+            repro_compact_blocks=launch,
+            repro_cuda_error_string=lambda e: b"fake"))
+        acc = torch.ones(5, 2048)
+        outs = (torch.empty(5, 10), torch.empty(5, 10, dtype=torch.int32),
+                torch.empty(5, dtype=torch.int32), torch.empty(5, 2048))
+        stream = types.SimpleNamespace(cuda_stream=11)
+        before = ct_mod.compact_blocks.launches
+        if err:
+            with pytest.raises(RuntimeError, match="CUDA error 700"):
+                ct_mod._launch(acc, torch.tensor(0.5), 10, outs, stream)
+        else:
+            ct_mod._launch(acc, torch.tensor(0.5), 10, outs, stream)
+        (args,) = calls
+        assert len(args) == 10
+        assert args[1:3] == (5, 2048) and args[4] == 10 and args[-1] == 11
+        assert args[5:9] == tuple(o.data_ptr() for o in outs)
+        assert ct_mod.compact_blocks.launches == before + (0 if err else 1)

@@ -2,6 +2,8 @@
 against the JAX package's Pallas kernels in interpret mode, on the
 reference's sweep (tests/test_kernels.py): d in {127, 1024, 8192, 40000},
 f32 and bf16 inputs."""
+import types
+
 import numpy as np
 import pytest
 
@@ -216,3 +218,147 @@ class TestDispatch:
         with pytest.raises(ValueError):
             mh_mod.magnitude_hist(torch.ones(8), torch.ones(mh_mod.MAX_EDGES
                                                            + 1))
+
+
+class _Stream:
+    """Stands in for a torch.cuda.Stream: only its handle is read."""
+
+    def __init__(self, handle):
+        self.cuda_stream = handle
+
+
+def _fake_lib(entry: str, err: int, calls: list):
+    """A stand-in for a kernel's ctypes library: records each launch's
+    arguments and returns `err`."""
+    def launch(*args):
+        calls.append(args)
+        return err
+    return types.SimpleNamespace(**{entry: launch},
+                                 repro_cuda_error_string=lambda e: b"fake")
+
+
+class TestMagnitudeHistPaths:
+    """The plain version against the Pallas kernel where the one-launch
+    CUDA kernel has its own code paths (a scalar head on views at storage
+    offsets 1-3, a scalar tail on odd lengths, non-finite entries), and
+    the wrapper's pure-Python launch geometry and workspace cache."""
+
+    @pytest.mark.parametrize("off", [1, 2, 3])
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_offset_views_vs_jax_kernel(self, off, dtype):
+        x = _g(4097 + off, 40 + off)
+        jg, _ = _pair(x[off:], dtype)
+        tg = torch.tensor(x).to(getattr(torch, dtype))[off:]
+        assert tg.storage_offset() == off
+        edges = (np.float32(8.0) * 2.0 ** -np.arange(49)).astype(np.float32)
+        want = j_hist(jg, jnp.asarray(edges), block=2048, interpret=True)
+        got = mh_mod.magnitude_hist(tg, torch.from_numpy(edges))
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want).astype(np.int64))
+
+    @pytest.mark.parametrize("d", [1, 3, 4097])
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_odd_lengths_vs_jax_kernel(self, d, dtype):
+        jg, tg = _pair(_g(d, d + 50), dtype)
+        edges = np.linspace(4.0, 0.01, 129).astype(np.float32)
+        want = j_hist(jg, jnp.asarray(edges), block=2048, interpret=True)
+        got = mh_mod.magnitude_hist(tg, torch.from_numpy(edges))
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want).astype(np.int64))
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_non_finite_vs_jax_kernel(self, dtype):
+        """NaN never counts; +-Inf counts at every edge."""
+        x = _g(5000, 60)
+        x[[0, 77, 4999]] = np.nan
+        x[[1, 2500]] = np.inf
+        x[[3, 4998]] = -np.inf
+        jg, tg = _pair(x, dtype)
+        edges = (np.float32(1e30) * 2.0 ** -np.arange(120)).astype(np.float32)
+        want = j_hist(jg, jnp.asarray(edges), block=2048, interpret=True)
+        got = mh_mod.magnitude_hist(tg, torch.from_numpy(edges))
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want).astype(np.int64))
+        assert int(got[0]) == 4 and int(got[-1]) <= 5000 - 3
+
+    @pytest.mark.parametrize("ptr,n,itemsize,want", [
+        (0, 10, 4, (0, 2, 2)),
+        (4, 10, 4, (3, 1, 3)),
+        (8, 1, 4, (1, 0, 0)),
+        (12, 4, 4, (1, 0, 3)),
+        (2, 20, 2, (7, 1, 5)),
+        (16, 0, 4, (0, 0, 0)),
+        (64, 1_663_370, 4, (0, 415_842, 2)),
+    ])
+    def test_vector_split(self, ptr, n, itemsize, want):
+        assert mh_mod.vector_split(ptr, n, itemsize) == want
+
+    def test_vector_split_covers_and_aligns(self):
+        rng = np.random.RandomState(0)
+        for _ in range(500):
+            itemsize = int(rng.choice([2, 4]))
+            ptr = int(rng.randint(0, 64)) * itemsize
+            n = int(rng.randint(0, 100))
+            head, nvec, tail = mh_mod.vector_split(ptr, n, itemsize)
+            per = mh_mod.VEC_BYTES // itemsize
+            assert head + nvec * per + tail == n
+            assert 0 <= head < per and 0 <= tail < per
+            if nvec:
+                assert (ptr + head * itemsize) % mh_mod.VEC_BYTES == 0
+
+    def test_workspace_is_kept_per_device_and_stream(self, monkeypatch):
+        monkeypatch.setattr(mh_mod, "_WORKSPACES", {})
+        cpu = torch.device("cpu")
+        a = mh_mod._workspace(cpu, _Stream(1))
+        assert a.dtype == torch.int32 and a.numel() == mh_mod.MAX_EDGES + 1
+        assert not a.any()
+        assert mh_mod._workspace(cpu, _Stream(1)) is a
+        assert mh_mod._workspace(cpu, _Stream(2)) is not a
+        assert len(mh_mod._WORKSPACES) == 2
+        key = mh_mod._workspace_key
+        assert key(torch.device("cuda", 0), _Stream(0)) \
+            != key(torch.device("cuda", 1), _Stream(0))
+
+    @pytest.mark.parametrize("err", [0, 700])
+    def test_launch_arguments_and_failed_launch(self, monkeypatch, err):
+        """What the wrapper hands the kernel (a view at offset 1: a 3-float
+        head), and that a launch error discards the workspace and raises."""
+        calls = []
+        monkeypatch.setattr(mh_mod, "_WORKSPACES", {})
+        monkeypatch.setattr(mh_mod, "_lib", lambda defines=(): _fake_lib(
+            "repro_magnitude_hist", err, calls))
+        g = torch.ones(1000)[1:]
+        edges = torch.tensor([2.0, 0.5])
+        before = mh_mod.magnitude_hist.launches
+        if err:
+            with pytest.raises(RuntimeError, match="CUDA error 700"):
+                mh_mod._launch(g, edges, _Stream(9))
+            assert mh_mod._WORKSPACES == {}
+            assert mh_mod.magnitude_hist.launches == before
+        else:
+            counts = mh_mod._launch(g, edges, _Stream(9))
+            assert counts.dtype == torch.int32 and counts.numel() == 2
+            assert list(mh_mod._WORKSPACES) == [(None, 9)]
+            assert mh_mod.magnitude_hist.launches == before + 1
+        (args,) = calls
+        head, nvec, tail = mh_mod.vector_split(g.data_ptr(), 999, 4)
+        assert args[1:5] == (head, nvec, tail, 0) and head == 3
+        # edges, then the device index (the library sizes the grid from
+        # its SM count) and the stream
+        assert args[6] == 2 and args[9:] == (0, 9)
+
+    def test_launch_from_a_given_library(self, monkeypatch):
+        """`lib=` launches from that library (a build variant), with the
+        same arguments and the same workspace as the default one."""
+        calls, other = [], []
+        monkeypatch.setattr(mh_mod, "_WORKSPACES", {})
+        monkeypatch.setattr(mh_mod, "_lib", lambda defines=(): _fake_lib(
+            "repro_magnitude_hist", 0, other))
+        g, edges = torch.ones(64), torch.tensor([0.5])
+        mh_mod._launch(g, edges, _Stream(3),
+                       lib=_fake_lib("repro_magnitude_hist", 0, calls))
+        mh_mod._launch(g, edges, _Stream(3))
+        assert len(calls) == len(other) == 1
+        # all but the counts buffer, which each call allocates
+        assert calls[0][1:8] + calls[0][9:] == other[0][1:8] + other[0][9:]
+        assert list(mh_mod._WORKSPACES) == [(None, 3)]
