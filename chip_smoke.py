@@ -17,10 +17,14 @@ Phases (any failure exits non-zero and prints no result line):
             offsets 1-3, d in {1, 3, 4097}, NaN and +-Inf entries, 1 and
             1024 edges, ten calls back to back and a call on a second
             stream, and one call is one kernel on the card under
-            torch.profiler — and time kernel, plain version and yardstick
-            PyTorch call at d = 1,663,370, magnitude_hist also at the pod
-            shard d = 832,512 (CUDA events, median of 30 launches, L2
-            flushed before each);
+            torch.profiler; ef_topk also bitwise (NaN payloads included)
+            on views at storage offsets 1-3, d in {1, 3, 4097}, NaN, +-Inf
+            and +-0 entries, t in {0, inf}, every pairing of f32 and bf16
+            g and r, ten calls back to back and a call on a second stream,
+            and one call is one kernel on the card — and time kernel,
+            plain version and yardstick PyTorch call at d = 1,663,370,
+            magnitude_hist also at the pod shard d = 832,512 (CUDA events,
+            median of 30 launches, L2 flushed before each);
 3. cli      `run_fl(--task cnn_fmnist --method fedluck --error-feedback
             --rounds 3 --device cuda)` with the CLI's other defaults (10
             devices, 4000 samples): finite accuracy, positive gbits, and
@@ -179,22 +183,121 @@ def check_hist_cases(torch, dev: str = "cuda") -> int:
     if not torch.equal(got, ref.ref_magnitude_hist(g, e)):
         fail("magnitude_hist on a second stream differs")
     n += 1
-    if len({k for k in mh._WORKSPACES if k[0] == g.device.index}) < 2:
+    if len({k for k in mh._WORKSPACES.keys()
+            if k[0] == g.device.index}) < 2:
         fail("the second stream did not get its own workspace")
-    # one call, one kernel: no fill, no second kernel
+    one_kernel(torch, "magnitude_hist", "hist_kernel",
+               lambda: mh.magnitude_hist(g, e))
+    return n
+
+
+def one_kernel(torch, name: str, kernel: str, call) -> None:
+    """Fails unless `call()` puts exactly one kernel, `kernel`, on the
+    card (torch.profiler): no fill, no second kernel."""
     from repro_torch.obs.profiling import device_profile
     torch.cuda.synchronize()
     with device_profile() as prof:
-        mh.magnitude_hist(g, e)
+        call()
         torch.cuda.synchronize()
     # "Activity Buffer Request" is the tracer's own bookkeeping, not work
     on_card = [ev.name for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA
                and ev.name != "Activity Buffer Request"]
-    if len(on_card) != 1 or "hist_kernel" not in on_card[0]:
-        fail(f"one magnitude_hist call put {on_card} on the card")
-    log(f"[kernels] one magnitude_hist call = one device kernel: {on_card}")
-    return n
+    if len(on_card) != 1 or kernel not in on_card[0]:
+        fail(f"one {name} call put {on_card} on the card")
+    log(f"[kernels] one {name} call = one device kernel: {on_card}")
+
+
+def check_ef_cases(torch, dev: str = "cuda") -> tuple[int, float]:
+    """ef_topk bitwise against its plain version (`check_ef`: out and r'
+    by bits, NaN payloads included, nnz equal) where the one-launch kernel
+    has its own code paths: views at storage offsets 1-3 (out and r' are
+    fresh, so the phases differ and the whole vector is scalars), lengths
+    1, 3 and 4097 (a scalar tail), NaN, +-Inf and +-0 entries (also in the
+    head and tail of an offset view), t in {0, inf} (also at the cnn
+    width), every pairing of f32 and bf16 g and r, ten calls back to back
+    (the workspace resets) and a call on a second stream. On the
+    card, one call puts exactly one kernel on the device. Returns (calls
+    checked, largest abs error over finite entries)."""
+    from repro_torch.kernels import ef_topk as ef_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.checks import bits_equal, check_ef, vec
+
+    n, err = 0, 0.0
+
+    def check(g, r, t, what):
+        nonlocal n, err
+        err = max(err, check_ef(g, r, t, what))
+        n += 1
+
+    def agrees(g, r, t, got) -> bool:
+        want = ref.ref_ef_topk(g, r, torch.tensor(t, device=g.device))
+        return (bits_equal(got[0], want[0]) and bits_equal(got[1], want[1])
+                and int(got[2]) == int(want[2]))
+
+    dtypes = (torch.float32, torch.bfloat16)
+    for gd in dtypes:
+        for rd in dtypes:
+            tag = f"g {gd} r {rd}"
+            g = vec(40_003, 31, dev).to(gd)
+            r = (vec(40_003, 32, dev) * 0.1).to(rd)
+            for off in (1, 2, 3):
+                gv, rv = g[off:off + 40_000], r[off:off + 40_000]
+                if gv.storage_offset() != off:
+                    fail(f"view at offset {off} has storage_offset "
+                         f"{gv.storage_offset()}")
+                check(gv, rv, 1.0, f"offset {off} {tag}")
+                check(gv, r[:40_000], 1.0, f"g at offset {off} {tag}")
+            for d in (1, 3, 4097):
+                check(vec(d, d, dev).to(gd), (vec(d, d + 1, dev) * 0.1).to(rd),
+                      1.0, f"d={d} {tag}")
+            # non-finite and signed-zero entries, also in the head and tail
+            g = vec(40_001, 33, dev)
+            r = vec(40_001, 34, dev) * 0.1
+            g[[1, 777, 30_001]] = math.nan
+            g[[2, 4096, 40_000]] = math.inf
+            g[[3, 39_999]] = -math.inf
+            r[[5, 4096]] = -math.inf      # at 4096 Inf + -Inf: NaN
+            r[[6, 39_998]] = math.nan
+            g[10] = r[10] = 0.0
+            g[11] = r[11] = -0.0          # acc = -0: kept at t = 0
+            g, r = g.to(gd), r.to(rd)
+            for t in (1.0, 0.0, math.inf):
+                check(g, r, t, f"non-finite t={t} {tag}")
+                check(g[1:], r[1:], t, f"non-finite offset 1 t={t} {tag}")
+    for t in (0.0, math.inf):
+        check(vec(D_CNN, 35, dev), vec(D_CNN, 36, dev) * 0.1, t,
+              f"d={D_CNN} t={t}")
+    # ten calls back to back, compared only after all are queued
+    runs = []
+    for i in range(10):
+        d = POD_NB * POD_BLK - 97 * i
+        g = vec(d, 40 + i, dev).to(dtypes[i % 2])
+        r = (vec(d, 50 + i, dev) * 0.1).to(dtypes[i // 2 % 2])
+        t = (1.0, 0.5, 0.0, math.inf, 2.0)[i % 5]
+        runs.append((g, r, t, ef_mod.ef_topk(g, r, t)))
+    for i, (g, r, t, got) in enumerate(runs):
+        if not agrees(g, r, t, got):
+            fail(f"ef_topk back-to-back call {i} differs")
+        n += 1
+    if dev != "cuda":
+        return n, err
+    g, r = vec(D_CNN, 37), vec(D_CNN, 38) * 0.1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = ef_mod.ef_topk(g, r, 1.0)
+    torch.cuda.current_stream().wait_stream(side)
+    if not agrees(g, r, 1.0, got):
+        fail("ef_topk on a second stream differs")
+    n += 1
+    if len({k for k in ef_mod._WORKSPACES.keys()
+            if k[0] == g.device.index}) < 2:
+        fail("the second stream did not get its own ef_topk workspace")
+    t = torch.tensor(1.0, device=g.device)
+    one_kernel(torch, "ef_topk", "ef_topk_kernel",
+               lambda: ef_mod.ef_topk(g, r, t))
+    return n, err
 
 
 # ------------------------------------------------------------------- phases
@@ -219,7 +322,7 @@ def phase_kernels(torch) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.ef_topk import ef_topk
     from repro_torch.kernels.fused_momentum import fused_momentum
-    from repro_torch.kernels.checks import check_hist, vec
+    from repro_torch.kernels.checks import check_ef, check_hist, vec
     from repro_torch.kernels.magnitude_hist import magnitude_hist
     from repro_torch.obs.profiling import time_ms
 
@@ -231,14 +334,8 @@ def phase_kernels(torch) -> dict:
             r = (vec(d, d + 1) * 0.1).to(dtype)
             _, _, t = check_hist(g, f"d={d} {dtype}")
             # ef_topk: bitwise out / residual / nnz, and conservation
-            out, res, nnz = ef_topk(g, r, t)
-            ro, rr, rn = ref.ref_ef_topk(g, r, t)
-            if not (torch.equal(out, ro) and torch.equal(res, rr)
-                    and int(nnz) == int(rn)):
-                fail(f"ef_topk d={d} {dtype}: differs from the plain "
-                     f"version (nnz {int(nnz)} vs {int(rn)})")
-            if dtype == torch.float32 and not torch.equal(out + res, g + r):
-                fail(f"ef_topk d={d}: out + r' != g + r")
+            err["ef_topk"] = max(err["ef_topk"],
+                                 check_ef(g, r, t, f"d={d} {dtype}"))
             # fused_momentum: rtol 2e-5 / atol 1e-6 (the reference's own)
             w, gg = vec(d, d + 2).to(dtype), vec(d, d + 3)
             mu = vec(d, d + 4)
@@ -253,11 +350,16 @@ def phase_kernels(torch) -> dict:
                     fail(f"fused_momentum {what} d={d} {dtype}: max abs "
                          f"err {e}")
     n_cases = check_hist_cases(torch)
+    n_ef, e_ef = check_ef_cases(torch)
+    err["ef_topk"] = max(err["ef_topk"], e_ef)
     torch.cuda.synchronize()
     log(f"[kernels] all three agree with their plain versions at d in "
         f"{SIZES}, f32 and bf16 inputs; magnitude_hist exact in {n_cases} "
         f"more calls (offset views, odd lengths, non-finite entries, 1 and "
-        f"1024 edges, back to back, a second stream)")
+        f"1024 edges, back to back, a second stream); ef_topk bitwise in "
+        f"{n_ef} more calls (offset views, odd lengths, non-finite and "
+        f"signed-zero entries, t in {{0, inf}}, mixed dtypes, back to back, "
+        f"a second stream)")
 
     # timings at the cnn width, f32
     d = D_CNN
@@ -684,7 +786,7 @@ def main() -> int:
     meta = {
         "fused_momentum": ("triton", "src/repro_torch/kernels/fused_momentum.py",
                            "src/repro/kernels/fused_momentum.py:46"),
-        "ef_topk": ("triton", "src/repro_torch/kernels/ef_topk.py",
+        "ef_topk": ("cuda", "src/repro_torch/kernels/csrc/ef_topk.cu",
                     "src/repro/kernels/ef_topk.py:57"),
         "magnitude_hist": ("cuda",
                            "src/repro_torch/kernels/csrc/magnitude_hist.cu",

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
   fused_momentum  Triton    replaces repro/kernels/fused_momentum.py
-  ef_topk         Triton    replaces repro/kernels/ef_topk.py
+  ef_topk         CUDA C++  replaces repro/kernels/ef_topk.py
+                            (csrc/ef_topk.cu, built for sm_90a)
   magnitude_hist  CUDA C++  replaces repro/kernels/magnitude_hist.py
                             (csrc/magnitude_hist.cu, built for sm_90a)
   compact_blocks  CUDA C++  replaces repro/kernels/compact_topk.py

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CUDA_SOURCES = ("magnitude_hist", "compact_blocks")
+CUDA_SOURCES = ("magnitude_hist", "compact_blocks", "ef_topk")
 
 # nvcc's stderr per built source (ptxas register / shared-memory report)
 BUILD_LOG: dict[str, str] = {}

@@ -1,4 +1,4 @@
-"""Input checks shared by the kernel wrappers."""
+"""Input checks and per-stream workspaces shared by the kernel wrappers."""
 from __future__ import annotations
 
 import torch
@@ -26,3 +26,35 @@ def check_vector(what: str, t: torch.Tensor, dtypes=FLOAT_TYPES,
         raise ValueError(f"{what}: on {t.device}, expected {device}")
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+class StreamWorkspaces:
+    """Zeroed int32 workspaces of `words` words, one per (device, stream),
+    for kernels whose last CTA finishes a cross-CTA reduction and zeroes
+    the workspace again (`magnitude_hist`, `ef_topk`). So a call needs no
+    fill kernel, and calls on different streams never share one. A
+    workspace is made zeroed on first use, with its stream current, so the
+    fill is ordered before the first launch on it; a launch that returns
+    an error `discard`s it rather than trust it."""
+
+    def __init__(self, words: int):
+        self.words = words
+        self._ws: dict[tuple, torch.Tensor] = {}
+
+    @staticmethod
+    def key(device: torch.device, stream) -> tuple:
+        return device.index, stream.cuda_stream
+
+    def get(self, device: torch.device, stream) -> torch.Tensor:
+        key = self.key(device, stream)
+        ws = self._ws.get(key)
+        if ws is None:
+            ws = self._ws[key] = torch.zeros(self.words, dtype=torch.int32,
+                                             device=device)
+        return ws
+
+    def discard(self, device: torch.device, stream) -> None:
+        self._ws.pop(self.key(device, stream), None)
+
+    def keys(self) -> list[tuple]:
+        return list(self._ws)

@@ -5,9 +5,10 @@
 edges, then 129 fine edges between the coarse bracket) for top-k of a
 vector and holds `magnitude_hist` to exact counts on both;
 `check_compact` holds `compact_blocks` to its plain version bit for bit
-on all four outputs. Each takes the kernel wrapper to check (default: this
-package's), so a measurement can hold another tree's kernels to the same
-plain versions. A mismatch raises `CheckFailed`.
+on all four outputs; `check_ef` holds `ef_topk` to its plain version bit
+for bit on out, r' and nnz. Each takes the kernel wrapper to check
+(default: this package's), so a measurement can hold another tree's
+kernels to the same plain versions. A mismatch raises `CheckFailed`.
 """
 from __future__ import annotations
 
@@ -30,11 +31,24 @@ def vec(d: int, seed: int, device="cuda") -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
-def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Same shape and the same 32-bit patterns (NaN payloads and the sign
-    of zero included)."""
-    return a.shape == b.shape and torch.equal(
-        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+_BITS = {4: torch.int32, 2: torch.int16}
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor, *,
+               any_nan: bool = False) -> bool:
+    """Same shape, dtype and bit patterns (f32 or bf16; NaN payloads and
+    the sign of zero included). With `any_nan`, a NaN matches a NaN
+    whatever its payload and sign (two frameworks' NaNs differ there), and
+    every other entry still bit for bit."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if any_nan:
+        nan = torch.isnan(a)
+        if not torch.equal(nan, torch.isnan(b)):
+            return False
+        a, b = a.masked_fill(nan, 0), b.masked_fill(nan, 0)
+    bits = _BITS[a.element_size()]
+    return torch.equal(a.contiguous().view(bits), b.contiguous().view(bits))
 
 
 def check_hist(g: torch.Tensor, what: str, k: int | None = None,
@@ -87,4 +101,34 @@ def check_compact(acc: torch.Tensor, t, budget: int, what: str,
         if not same:
             raise CheckFailed(f"compact_blocks {what}: {name} differs from "
                               f"the plain version")
+    return err
+
+
+def check_ef(g: torch.Tensor, r: torch.Tensor, t, what: str,
+             ef=None) -> float:
+    """`ef` (default `ef_topk`) against the plain version: out, r' bit
+    for bit in their dtypes (NaN payloads included), nnz equal, and where
+    g and r are f32 and g + r is finite, out + r' == g + r bit for bit.
+    Returns the largest absolute difference of out and r' over their
+    finite entries (0.0 when they agree)."""
+    if ef is None:
+        from repro_torch.kernels.ef_topk import ef_topk as ef
+    out, res, nnz = ef(g, r, t)
+    ro, rr, rn = ref.ref_ef_topk(g, r, torch.as_tensor(
+        t, dtype=torch.float32, device=g.device))
+    err = 0.0
+    for a, b, name in ((out, ro, "out"), (res, rr, "residual")):
+        if not bits_equal(a, b):
+            raise CheckFailed(f"ef_topk {what}: {name} differs from the "
+                              f"plain version")
+        fin = torch.isfinite(a)
+        if fin.any():
+            err = max(err, (a.float() - b.float())[fin].abs().max().item())
+    if nnz.dtype != torch.int32 or nnz.shape != () or int(nnz) != int(rn):
+        raise CheckFailed(f"ef_topk {what}: nnz {nnz.dtype} "
+                          f"{tuple(nnz.shape)} {int(nnz)} vs plain {int(rn)}")
+    if g.dtype == r.dtype == torch.float32:
+        acc = g + r
+        if bool(torch.isfinite(acc).all()) and not bits_equal(out + res, acc):
+            raise CheckFailed(f"ef_topk {what}: out + r' != g + r")
     return err

@@ -8,66 +8,118 @@ Replaces the Pallas TPU kernel `ef_topk` in repro/kernels/ef_topk.py:
     r'   = acc − out            (what stays on the device)
     nnz  = #keep                (int32)
 
-Route: Triton (an elementwise pass plus one count reduction). The TPU
-kernel carries nnz across its sequential grid; blocks on the card run in
-no order, so each program reduces its own block's count and adds it to one
-int32 with `tl.atomic_add`. `t` is read from a device tensor, so the
-threshold from `ops.solve_threshold` never visits the host. out + r' equals
-g + r bitwise in f32.
+Route: CUDA C++ (`csrc/ef_topk.cu`, built for sm_90a by `_build`, bound
+with ctypes). One launch per call and no fill: each CTA adds its keep
+count (register, warp reduction, shared memory) and a ticket to a zeroed
+8-byte workspace in one 64-bit atomic, and the CTA that takes the last
+ticket writes nnz and zeroes the workspace again. Each warp walks the
+vector in quads of 4 elements (16 bytes of f32, 8 of bf16), every thread
+loading all of its quads of g and r (evict-first: they are read once)
+before it computes; the library sizes the grid from the card's SM count,
+so the cnn vector is in flight in one wave. `t` is read from a device
+tensor, so the threshold from `ops.solve_threshold` never visits the
+host. out + r' equals g + r bitwise in f32.
 
-Bound on an H100: 2 reads + 2 writes, 4·4·d bytes in f32 (26.6 MB, about
-8 us at 3.35 TB/s at the cnn width d = 1,663,370). Each program streams
-one contiguous block once; the count costs one atomic per program.
+Bound on an H100: 2 reads + 2 writes, 16 bytes per element in f32
+(26,613,920 B, 7.94 us at 3.35 TB/s at the cnn width d = 1,663,370).
+
+The wrapper keeps one workspace per (device, stream) in a
+`_common.StreamWorkspaces`; a launch that returns an error discards it
+before the wrapper raises. `quad_split` puts the scalars the quads cannot
+take (a head up to the common quad boundary of g, r, out and r', and a
+tail) around them; pointers whose phases differ make the whole vector
+scalars, in the same kernel.
 
 A CPU tensor goes through `ref.ref_ef_topk`; a CUDA tensor launches the
 kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from repro_torch.kernels._common import check_vector
+from repro_torch.kernels import _build
+from repro_torch.kernels._common import StreamWorkspaces, check_vector
 from repro_torch.kernels.ref import ref_ef_topk
 
-BLOCK = 2048
-_KERNEL = None
+QUAD = 4               # elements per quad (one vector access)
+_MAX_ELEMS = 2 ** 31   # nnz is int32
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# one 64-bit word (keep count, done ticket), zero between calls
+_WORKSPACES = StreamWorkspaces(2)
 
 
-def _kernel():
-    """Compile-on-first-use Triton kernel (triton is imported only here)."""
-    global _KERNEL, tl
-    if _KERNEL is None:
-        import triton
-        import triton.language as tl
+@functools.lru_cache(maxsize=None)
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel's library. `defines` (NAME or NAME=VALUE, nvcc's -D)
+    build a variant of it for measurement (`launch.profile_kernels
+    --variants`)."""
+    lib = _build.load_library("ef_topk", defines)
+    lib.repro_ef_topk.restype = ctypes.c_int
+    lib.repro_ef_topk.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    return lib
 
-        @triton.jit
-        def ef_topk_kernel(g_ptr, r_ptr, t_ptr, out_ptr, res_ptr, nnz_ptr, n,
-                           BLOCK: tl.constexpr):
-            offs = tl.program_id(0).to(tl.int64) * BLOCK \
-                + tl.arange(0, BLOCK)
-            mask = offs < n
-            acc = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32) \
-                + tl.load(r_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            t = tl.load(t_ptr)
-            keep = (tl.abs(acc) >= t) & mask
-            out = tl.where(keep, acc, 0.0)
-            tl.store(out_ptr + offs, out.to(out_ptr.dtype.element_ty),
-                     mask=mask)
-            tl.store(res_ptr + offs, (acc - out).to(res_ptr.dtype.element_ty),
-                     mask=mask)
-            tl.atomic_add(nnz_ptr, tl.sum(keep.to(tl.int32), axis=0))
 
-        _KERNEL = ef_topk_kernel
-    return _KERNEL
+def quad_split(ptrs, itemsizes, n: int) -> tuple[int, int, int]:
+    """(head, nquad, tail) for n elements at each of the addresses `ptrs`
+    (elements of `itemsizes` bytes): `head` scalars until every pointer is
+    at a quad boundary (4 elements: 16 bytes of f32, 8 of bf16), `nquad`
+    quads, then `tail` scalars (head, tail < 4). Where the pointers reach
+    that boundary after different numbers of elements, no quad serves them
+    all: (n, 0, 0), the whole vector as scalars."""
+    heads = {(-p % (QUAD * s)) // s for p, s in zip(ptrs, itemsizes)}
+    if len(heads) != 1:
+        return n, 0, 0
+    head = min(n, heads.pop())
+    nquad = (n - head) // QUAD
+    return head, nquad, n - head - nquad * QUAD
+
+
+def _launch(g: torch.Tensor, residual: torch.Tensor,
+            threshold: torch.Tensor, stream,
+            lib: ctypes.CDLL | None = None) -> tuple:
+    """One kernel launch on `stream` (current on g's device), from `lib`
+    (default `_lib()`); returns (out, new_residual, nnz)."""
+    lib = _lib() if lib is None else lib
+    n = g.numel()
+    out = torch.empty_like(g)
+    res = torch.empty_like(residual)
+    nnz = torch.empty((), dtype=torch.int32, device=g.device)
+    ws = _WORKSPACES.get(g.device, stream)
+    tensors = (g, residual, out, res)
+    head, nquad, _ = quad_split([x.data_ptr() for x in tensors],
+                                [x.element_size() for x in tensors], n)
+    err = lib.repro_ef_topk(
+        g.data_ptr(), _DTYPE_CODE[g.dtype], residual.data_ptr(),
+        _DTYPE_CODE[residual.dtype], threshold.data_ptr(), out.data_ptr(),
+        res.data_ptr(), nnz.data_ptr(), n, head, nquad, ws.data_ptr(),
+        g.device.index or 0, stream.cuda_stream)
+    if err:
+        # the launch never ran; drop the workspace rather than trust it
+        _WORKSPACES.discard(g.device, stream)
+    _build.check_cuda(lib, err, "ef_topk launch")
+    ef_topk.launches += 1
+    return out, res, nnz
 
 
 def ef_topk(g: torch.Tensor, residual: torch.Tensor,
             threshold: torch.Tensor | float):
     """Returns (out [d] g.dtype, new_residual [d] residual.dtype,
-    nnz int32 scalar tensor). `threshold` is a one-element f32 tensor on
-    g's device (or a Python float)."""
+    nnz int32 scalar tensor). g and residual are each f32 or bf16;
+    `threshold` is a one-element f32 tensor on g's device (or a Python
+    float)."""
     check_vector("ef_topk g", g)
     check_vector("ef_topk residual", residual, n=g.numel(), device=g.device)
+    if g.numel() >= _MAX_ELEMS:
+        raise ValueError(f"ef_topk: {g.numel()} elements, nnz is int32 "
+                         f"(need < 2^31)")
     if not isinstance(threshold, torch.Tensor):
         threshold = torch.tensor(float(threshold), dtype=torch.float32,
                                  device=g.device)
@@ -78,17 +130,9 @@ def ef_topk(g: torch.Tensor, residual: torch.Tensor,
                          f"{tuple(threshold.shape)} on {threshold.device}")
     if g.device.type == "cpu":
         return ref_ef_topk(g, residual, threshold)
-    n = g.numel()
-    out = torch.empty_like(g)
-    res = torch.empty_like(residual)
-    nnz = torch.zeros((), dtype=torch.int32, device=g.device)
-    if n:
-        with torch.cuda.device(g.device):
-            _kernel()[((n + BLOCK - 1) // BLOCK,)](
-                g, residual, threshold.reshape(1).contiguous(), out, res, nnz,
-                n, BLOCK=BLOCK, num_warps=4)
-    ef_topk.launches += 1
-    return out, res, nnz
+    with torch.cuda.device(g.device):
+        return _launch(g, residual, threshold,
+                       torch.cuda.current_stream(g.device))
 
 
 ef_topk.launches = 0

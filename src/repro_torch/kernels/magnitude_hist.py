@@ -18,9 +18,9 @@ a scalar head and tail (`vector_split`); the library sizes the grid from
 the card's SM count. Counts are int32; NaN never counts.
 
 The wrapper keeps one workspace (MAX_EDGES + 1 int32, zeroed when it is
-made) per (device, stream), so calls on different streams never share
-one. A launch that returns an error discards its workspace before the
-wrapper raises.
+made) per (device, stream) in a `_common.StreamWorkspaces`, so calls on
+different streams never share one. A launch that returns an error
+discards its workspace before the wrapper raises.
 
 A CPU tensor goes through `ref.ref_magnitude_hist`; a CUDA tensor launches
 the kernel or raises.
@@ -33,15 +33,15 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import check_vector
+from repro_torch.kernels._common import StreamWorkspaces, check_vector
 from repro_torch.kernels.ref import ref_magnitude_hist
 
 MAX_EDGES = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VEC_BYTES = 16          # bytes per vector load
 
-# (device index, stream handle) -> int32[MAX_EDGES + 1], zero between calls
-_WORKSPACES: dict[tuple, torch.Tensor] = {}
+# bins [0, MAX_EDGES) and a done counter, zero between calls
+_WORKSPACES = StreamWorkspaces(MAX_EDGES + 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,29 +67,13 @@ def vector_split(ptr: int, n: int, itemsize: int) -> tuple[int, int, int]:
     return head, nvec, n - head - nvec * (VEC_BYTES // itemsize)
 
 
-def _workspace_key(device: torch.device, stream) -> tuple:
-    return device.index, stream.cuda_stream
-
-
-def _workspace(device: torch.device, stream) -> torch.Tensor:
-    """The zeroed int32[MAX_EDGES + 1] workspace of (device, stream), made
-    on first use (the caller has `stream` current, so the zero-fill is
-    ordered before the first launch on it)."""
-    key = _workspace_key(device, stream)
-    ws = _WORKSPACES.get(key)
-    if ws is None:
-        ws = _WORKSPACES[key] = torch.zeros(MAX_EDGES + 1, dtype=torch.int32,
-                                            device=device)
-    return ws
-
-
 def _launch(g: torch.Tensor, edges: torch.Tensor, stream,
             lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """One kernel launch on `stream` (current on g's device), from `lib`
     (default `_lib()`)."""
     lib = _lib() if lib is None else lib
     n_edges = edges.numel()
-    ws = _workspace(g.device, stream)
+    ws = _WORKSPACES.get(g.device, stream)
     counts = torch.empty(n_edges, dtype=torch.int32, device=g.device)
     head, nvec, tail = vector_split(g.data_ptr(), g.numel(), g.element_size())
     err = lib.repro_magnitude_hist(
@@ -98,7 +82,7 @@ def _launch(g: torch.Tensor, edges: torch.Tensor, stream,
         g.device.index or 0, stream.cuda_stream)
     if err:
         # the launch never ran; drop the workspace rather than trust it
-        _WORKSPACES.pop(_workspace_key(g.device, stream), None)
+        _WORKSPACES.discard(g.device, stream)
     _build.check_cuda(lib, err, "magnitude_hist launch")
     magnitude_hist.launches += 1
     return counts

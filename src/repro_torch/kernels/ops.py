@@ -4,14 +4,15 @@
 `topk_compress` is the threshold top-k pipeline:
 
   pass 0  gmax = max|acc|                     (torch reduction)
-  pass 1  coarse log2-bucket histogram        (magnitude_hist kernel)
-  pass 2  fine linear histogram inside bucket (magnitude_hist kernel)
+  pass 1  coarse log2-bucket histogram        (magnitude_hist, CUDA C++)
+  pass 2  fine linear histogram inside bucket (magnitude_hist, CUDA C++)
   solve   threshold t s.t. #{|acc| >= t} ~= δ·d   (tensor ops on the device)
-  pass 3  fused EF select                     (ef_topk kernel)
+  pass 3  fused EF select                     (ef_topk, CUDA C++)
 
 `compact_shard_topk` is the pod-sync shard compaction: one threshold solve
 (passes 0-2) over a blocked shard [nb, blk] targeting nb·budget keeps, then
-the `compact_blocks` kernel packs each block into `budget` slots.
+the `compact_blocks` kernel (CUDA C++) packs each block into `budget`
+slots. `momentum_update` is the `fused_momentum` kernel (Triton).
 `topk_compress_sparse` is `topk_compress` followed by `compact_topk`.
 
 Every step stays on the tensor's device; nothing here synchronises with

@@ -21,6 +21,7 @@ from repro.kernels.magnitude_hist import magnitude_hist as j_hist  # noqa: E402
 
 from repro_torch.kernels import _build, checks, ref  # noqa: E402
 from repro_torch.kernels.compact_topk import compact_blocks  # noqa: E402
+from repro_torch.kernels.ef_topk import ef_topk  # noqa: E402
 from repro_torch.kernels.magnitude_hist import magnitude_hist  # noqa: E402
 from repro_torch.launch import profile_kernels  # noqa: E402
 
@@ -62,6 +63,38 @@ class TestBitsEqual:
     def test_non_contiguous(self):
         x = torch.arange(12, dtype=torch.float32).view(3, 4)
         assert checks.bits_equal(x.t(), x.t().contiguous())
+
+    @pytest.mark.parametrize("a,b,want", [
+        ([1.0, 2.0, 3.0], [1.0, 2.0, 3.0], True),   # odd length
+        ([0.0], [-0.0], False),
+        ([1.0, 2.0], [1.0, 2.015625], False),        # one bf16 ulp
+    ])
+    def test_bf16_by_its_16_bits(self, a, b, want):
+        ta = torch.tensor(a, dtype=torch.bfloat16)
+        tb = torch.tensor(b, dtype=torch.bfloat16)
+        assert checks.bits_equal(ta, tb) is want
+
+    def test_dtypes_differ(self):
+        assert not checks.bits_equal(torch.ones(2),
+                                     torch.ones(2, dtype=torch.bfloat16))
+
+    @pytest.mark.parametrize("dtype,bits,nan_a,nan_b", [
+        (torch.float32, torch.int32, 0x7FC00000, -0x400000),   # sign differs
+        (torch.float32, torch.int32, 0x7FC00000, 0x7FFFFFFF),  # payload
+        (torch.bfloat16, torch.int16, 0x7FC0, -1),             # 0xFFFF
+    ])
+    def test_any_nan(self, dtype, bits, nan_a, nan_b):
+        """Two NaN patterns differ by bits and match with `any_nan`; the
+        other entries are still compared by bits."""
+        a = torch.tensor([1.0, 0.0, 0.0], dtype=dtype)
+        b = a.clone()
+        a.view(bits)[1], b.view(bits)[1] = nan_a, nan_b
+        assert not checks.bits_equal(a, b)
+        assert checks.bits_equal(a, b, any_nan=True)
+        b[2] = -0.0
+        assert not checks.bits_equal(a, b, any_nan=True)
+        b[2], b[1] = 0.0, 1.0                     # NaN against a number
+        assert not checks.bits_equal(a, b, any_nan=True)
 
 
 class TestCheckHist:
@@ -139,6 +172,72 @@ class TestCheckCompact:
             checks.check_compact(acc, 0.0, 4, "x", compact=compact)
 
 
+class TestCheckEf:
+    @pytest.mark.parametrize("gd", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+    def test_plain_version_agrees(self, gd, rd):
+        g = checks.vec(3001, 1, "cpu").to(gd)
+        r = (checks.vec(3001, 2, "cpu") * 0.1).to(rd)
+        g[[5, 6]], r[7] = float("nan"), float("inf")
+        for t in (0.5, 0.0, float("inf"), torch.tensor(1.0)):
+            assert checks.check_ef(g, r, t, "cpu") == 0.0
+
+    @pytest.mark.parametrize("which", [0, 1, 2])
+    def test_fails_on_a_wrong_output(self, which):
+        def ef(g, r, t):
+            outs = list(ef_topk(g, r, t))
+            outs[which] = outs[which].clone()
+            outs[which].view(-1)[0] += 1
+            return tuple(outs)
+        g = checks.vec(500, 3, "cpu")
+        with pytest.raises(checks.CheckFailed,
+                           match=("out", "residual", "nnz")[which]):
+            checks.check_ef(g, g * 0.1, 0.5, "x", ef=ef)
+
+    def test_fails_on_the_sign_of_zero(self):
+        """Bitwise, not by value: a residual of -0.0 where the plain
+        version has +0.0 is a difference."""
+        def ef(g, r, t):
+            out, res, nnz = ef_topk(g, r, t)
+            return out, torch.where(res == 0, -0.0, res), nnz
+        g = checks.vec(500, 4, "cpu")
+        with pytest.raises(checks.CheckFailed, match="residual"):
+            checks.check_ef(g, torch.zeros(500), 0.0, "x", ef=ef)
+
+    def test_fails_on_a_nan_payload(self):
+        """NaN is compared by its bits: another NaN pattern in r' is a
+        difference."""
+        def ef(g, r, t):
+            out, res, nnz = ef_topk(g, r, t)
+            res = res.clone()
+            res.view(torch.int32)[torch.isnan(res)] = 0x7FFFFFFF
+            return out, res, nnz
+        g = checks.vec(500, 5, "cpu")
+        g[9] = float("nan")
+        want = ref.ref_ef_topk(g, torch.zeros(500), torch.tensor(0.5))[1]
+        assert want.view(torch.int32)[9] != 0x7FFFFFFF
+        with pytest.raises(checks.CheckFailed, match="residual"):
+            checks.check_ef(g, torch.zeros(500), 0.5, "x", ef=ef)
+
+    def test_fails_on_a_wrong_dtype(self):
+        def ef(g, r, t):
+            out, res, nnz = ef_topk(g, r, t)
+            return out, res, nnz.to(torch.int64)
+        g = checks.vec(100, 6, "cpu")
+        with pytest.raises(checks.CheckFailed, match="nnz"):
+            checks.check_ef(g, g, 0.5, "x", ef=ef)
+
+    def test_takes_the_given_kernel(self):
+        calls = []
+
+        def ef(g, r, t):
+            calls.append(g.numel())
+            return ef_topk(g, r, t)
+        g = checks.vec(77, 7, "cpu")
+        checks.check_ef(g, g, 0.5, "x", ef=ef)
+        assert calls == [77]
+
+
 class TestBuildVariants:
     def test_defines_become_nvcc_flags(self):
         assert _build._flags() == _build.NVCC_FLAGS
@@ -154,27 +253,32 @@ class TestBuildVariants:
         assert _build._target(name, ("LOADS=4",))[1] == var
 
     def test_variants_named_by_the_profiler_exist_in_the_source(self):
-        text = (_build.CSRC / "magnitude_hist.cu").read_text()
-        for defines in profile_kernels.VARIANTS.values():
-            for d in defines:
-                assert f"#ifdef {d.split('=')[0]}" in text \
-                    or f"#ifndef {d.split('=')[0]}" in text
+        assert set(profile_kernels.VARIANTS) <= set(_build.CUDA_SOURCES)
+        for name, variants in profile_kernels.VARIANTS.items():
+            text = (_build.CSRC / f"{name}.cu").read_text()
+            for defines in variants.values():
+                for d in defines:
+                    assert f"#ifdef {d.split('=')[0]}" in text \
+                        or f"#ifndef {d.split('=')[0]}" in text
 
 
 class TestTreeKernels:
     def test_this_tree(self):
-        hist, compact = profile_kernels.tree_kernels(None)
+        hist, compact, ef = profile_kernels.tree_kernels(None)
         assert hist is magnitude_hist and compact is compact_blocks
+        assert ef is ef_topk
 
     def test_another_tree_beside_this_one(self):
         """Another checkout's wrappers load as separate modules, and this
         tree's modules are the ones `sys.modules` holds afterwards."""
         before = {k: v for k, v in sys.modules.items()
                   if k.split(".")[0] == "repro_torch"}
-        hist, compact = profile_kernels.tree_kernels(str(SRC))
+        hist, compact, ef = profile_kernels.tree_kernels(str(SRC))
         assert hist is not magnitude_hist and compact is not compact_blocks
-        assert Path(hist.__globals__["__file__"]).resolve() == Path(
-            sys.modules[magnitude_hist.__module__].__file__).resolve()
+        assert ef is not ef_topk
+        for theirs, ours in ((hist, magnitude_hist), (ef, ef_topk)):
+            assert Path(theirs.__globals__["__file__"]).resolve() == Path(
+                sys.modules[ours.__module__].__file__).resolve()
         after = {k: v for k, v in sys.modules.items()
                  if k.split(".")[0] == "repro_torch"}
         assert after == before
@@ -185,3 +289,4 @@ class TestTreeKernels:
         for a, b in zip(compact(acc, 0.5, budget=5),
                         compact_blocks(acc, 0.5, budget=5)):
             assert checks.bits_equal(a.float(), b.float())
+        assert checks.check_ef(g, g * 0.5, 0.5, "other tree", ef=ef) == 0.0

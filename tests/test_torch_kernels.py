@@ -17,6 +17,8 @@ from repro.kernels.fused_momentum import fused_momentum as j_fused  # noqa: E402
 from repro.kernels.magnitude_hist import magnitude_hist as j_hist  # noqa: E402
 
 from repro_torch import resolve_device  # noqa: E402
+from repro_torch.kernels import checks  # noqa: E402
+from repro_torch.kernels._common import StreamWorkspaces  # noqa: E402
 from repro_torch.kernels import ef_topk as ef_mod  # noqa: E402
 from repro_torch.kernels import fused_momentum as fm_mod  # noqa: E402
 from repro_torch.kernels import magnitude_hist as mh_mod  # noqa: E402
@@ -307,24 +309,30 @@ class TestMagnitudeHistPaths:
                 assert (ptr + head * itemsize) % mh_mod.VEC_BYTES == 0
 
     def test_workspace_is_kept_per_device_and_stream(self, monkeypatch):
-        monkeypatch.setattr(mh_mod, "_WORKSPACES", {})
+        monkeypatch.setattr(mh_mod, "_WORKSPACES",
+                            StreamWorkspaces(mh_mod.MAX_EDGES + 1))
+        ws = mh_mod._WORKSPACES
         cpu = torch.device("cpu")
-        a = mh_mod._workspace(cpu, _Stream(1))
+        a = ws.get(cpu, _Stream(1))
         assert a.dtype == torch.int32 and a.numel() == mh_mod.MAX_EDGES + 1
         assert not a.any()
-        assert mh_mod._workspace(cpu, _Stream(1)) is a
-        assert mh_mod._workspace(cpu, _Stream(2)) is not a
-        assert len(mh_mod._WORKSPACES) == 2
-        key = mh_mod._workspace_key
+        assert ws.get(cpu, _Stream(1)) is a
+        assert ws.get(cpu, _Stream(2)) is not a
+        assert len(ws.keys()) == 2
+        key = StreamWorkspaces.key
         assert key(torch.device("cuda", 0), _Stream(0)) \
             != key(torch.device("cuda", 1), _Stream(0))
+        ws.discard(cpu, _Stream(1))
+        assert ws.keys() == [(None, 2)]
+        assert ws.get(cpu, _Stream(1)) is not a
 
     @pytest.mark.parametrize("err", [0, 700])
     def test_launch_arguments_and_failed_launch(self, monkeypatch, err):
         """What the wrapper hands the kernel (a view at offset 1: a 3-float
         head), and that a launch error discards the workspace and raises."""
         calls = []
-        monkeypatch.setattr(mh_mod, "_WORKSPACES", {})
+        monkeypatch.setattr(mh_mod, "_WORKSPACES",
+                            StreamWorkspaces(mh_mod.MAX_EDGES + 1))
         monkeypatch.setattr(mh_mod, "_lib", lambda defines=(): _fake_lib(
             "repro_magnitude_hist", err, calls))
         g = torch.ones(1000)[1:]
@@ -333,12 +341,12 @@ class TestMagnitudeHistPaths:
         if err:
             with pytest.raises(RuntimeError, match="CUDA error 700"):
                 mh_mod._launch(g, edges, _Stream(9))
-            assert mh_mod._WORKSPACES == {}
+            assert mh_mod._WORKSPACES.keys() == []
             assert mh_mod.magnitude_hist.launches == before
         else:
             counts = mh_mod._launch(g, edges, _Stream(9))
             assert counts.dtype == torch.int32 and counts.numel() == 2
-            assert list(mh_mod._WORKSPACES) == [(None, 9)]
+            assert mh_mod._WORKSPACES.keys() == [(None, 9)]
             assert mh_mod.magnitude_hist.launches == before + 1
         (args,) = calls
         head, nvec, tail = mh_mod.vector_split(g.data_ptr(), 999, 4)
@@ -351,7 +359,8 @@ class TestMagnitudeHistPaths:
         """`lib=` launches from that library (a build variant), with the
         same arguments and the same workspace as the default one."""
         calls, other = [], []
-        monkeypatch.setattr(mh_mod, "_WORKSPACES", {})
+        monkeypatch.setattr(mh_mod, "_WORKSPACES",
+                            StreamWorkspaces(mh_mod.MAX_EDGES + 1))
         monkeypatch.setattr(mh_mod, "_lib", lambda defines=(): _fake_lib(
             "repro_magnitude_hist", 0, other))
         g, edges = torch.ones(64), torch.tensor([0.5])
@@ -361,4 +370,194 @@ class TestMagnitudeHistPaths:
         assert len(calls) == len(other) == 1
         # all but the counts buffer, which each call allocates
         assert calls[0][1:8] + calls[0][9:] == other[0][1:8] + other[0][9:]
-        assert list(mh_mod._WORKSPACES) == [(None, 3)]
+        assert mh_mod._WORKSPACES.keys() == [(None, 3)]
+
+
+def _torch_of(x, dtype: str) -> torch.Tensor:
+    """A JAX array as a torch CPU tensor of `dtype`, bit for bit."""
+    a = np.asarray(x)
+    if dtype == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.astype(np.float32))
+
+
+DTYPE_PAIRS = [(a, b) for a in DTYPES for b in DTYPES]
+
+
+class TestEfTopkPaths:
+    """The plain version against the Pallas kernel where the one-launch
+    CUDA kernel has its own code paths (the whole vector as scalars on
+    views at storage offsets 1-3, a scalar tail on odd lengths, non-finite
+    and signed-zero entries, t in {0, inf}, every pairing of f32 and bf16
+    g and r), compared by bits (`checks.bits_equal`; a NaN matches a NaN,
+    whose payload differs between the frameworks); and the wrapper's
+    pure-Python split, argument packing and workspace."""
+
+    @staticmethod
+    def _vs_jax(xg, xr, gd, rd, t, tg=None, tr=None):
+        """Both sides on the same values; JAX with one block of the whole
+        vector when t = 0 (its zero padding would count as kept)."""
+        jg, tg0 = _pair(xg, gd)
+        jr, tr0 = _pair(xr, rd)
+        tg = tg0 if tg is None else tg
+        tr = tr0 if tr is None else tr
+        block = xg.size if t == 0 else 2048
+        j_out, j_res, j_nnz = j_ef_topk(jg, jr, jnp.float32(t), block=block,
+                                        interpret=True)
+        out, res, nnz = ef_mod.ef_topk(tg, tr, t)
+        assert out.dtype == tg.dtype and res.dtype == tr.dtype
+        assert nnz.dtype == torch.int32 and nnz.shape == ()
+        assert int(nnz) == int(j_nnz)
+        assert checks.bits_equal(out, _torch_of(j_out, gd), any_nan=True)
+        assert checks.bits_equal(res, _torch_of(j_res, rd), any_nan=True)
+        return out, res, nnz
+
+    @pytest.mark.parametrize("off", [1, 2, 3])
+    @pytest.mark.parametrize("gd,rd", DTYPE_PAIRS)
+    def test_offset_views_vs_jax_kernel(self, off, gd, rd):
+        xg, xr = _g(4097 + off, 70 + off), _g(4097 + off, 80 + off) * 0.1
+        tg = torch.tensor(xg).to(getattr(torch, gd))[off:]
+        tr = torch.tensor(xr).to(getattr(torch, rd))[off:]
+        assert tg.storage_offset() == tr.storage_offset() == off
+        self._vs_jax(xg[off:], xr[off:], gd, rd, 0.5, tg, tr)
+
+    @pytest.mark.parametrize("d", [1, 3, 4097])
+    @pytest.mark.parametrize("gd,rd", DTYPE_PAIRS)
+    def test_odd_lengths_vs_jax_kernel(self, d, gd, rd):
+        self._vs_jax(_g(d, d + 90), _g(d, d + 91) * 0.1, gd, rd, 0.5)
+
+    @pytest.mark.parametrize("t", [0.5, 0.0, float("inf")])
+    @pytest.mark.parametrize("gd,rd", DTYPE_PAIRS)
+    def test_non_finite_vs_jax_kernel(self, t, gd, rd):
+        """NaN is never kept; +-Inf is kept at a finite t and at t = inf,
+        leaving r' = Inf - Inf = NaN; t = 0 keeps +-0 with its sign."""
+        xg, xr = _g(5000, 95), _g(5000, 96) * 0.1
+        xg[[0, 77, 4999]] = np.nan
+        xg[[1, 2500]] = np.inf
+        xg[[3, 4998]] = -np.inf
+        xr[[5, 2500]] = -np.inf          # at 2500 Inf + -Inf: NaN
+        xr[[6]] = np.nan
+        xg[[10, 11]] = xr[[10, 11]] = 0.0
+        xg[11] = xr[11] = -0.0
+        out, res, nnz = self._vs_jax(xg, xr, gd, rd, t)
+        o32, r32 = out.float(), res.float()
+        for i in (0, 6, 77, 2500, 4999):     # NaN accumulators
+            assert o32[i] == 0 and torch.isnan(r32[i])
+        for i, sign in ((1, 1), (3, -1), (4998, -1), (5, -1)):
+            assert o32[i] == sign * np.inf and torch.isnan(r32[i])
+        kept_zero = 1 if t == 0 else 0
+        assert int((o32[[10, 11]] == 0).sum()) == 2
+        assert bool(torch.signbit(o32[11])) == bool(kept_zero)
+        if t == np.inf:
+            assert int(nnz) == 4
+
+    @pytest.mark.parametrize("ptrs,sizes,n,want", [
+        ((0, 0, 0, 0), (4, 4, 4, 4), 10, (0, 2, 2)),
+        ((4, 4, 4, 4), (4, 4, 4, 4), 10, (3, 1, 3)),
+        ((4, 4, 0, 0), (4, 4, 4, 4), 10, (10, 0, 0)),     # phases differ
+        ((8, 8, 8, 8), (4, 4, 4, 4), 1, (1, 0, 0)),
+        ((2, 4, 2, 4), (2, 4, 2, 4), 20, (3, 4, 1)),      # bf16 g, f32 r
+        ((2, 4, 0, 0), (2, 4, 2, 4), 20, (20, 0, 0)),
+        ((6, 6, 6, 6), (2, 2, 2, 2), 7, (1, 1, 2)),
+        ((0, 0, 0, 0), (4, 4, 4, 4), 0, (0, 0, 0)),
+        ((512, 1024, 0, 512), (4, 4, 4, 4), 1_663_370, (0, 415_842, 2)),
+    ])
+    def test_quad_split(self, ptrs, sizes, n, want):
+        assert ef_mod.quad_split(ptrs, sizes, n) == want
+
+    def test_quad_split_covers_and_aligns(self):
+        rng = np.random.RandomState(0)
+        for _ in range(1000):
+            sizes = [int(rng.choice([2, 4])) for _ in range(4)]
+            # aligned allocations, some at a shared element offset
+            off = int(rng.randint(0, 8))
+            ptrs = [int(rng.randint(0, 64)) * 64 + (off if rng.rand() < 0.8
+                                                    else int(rng.randint(8)))
+                    * s for s in sizes]
+            n = int(rng.randint(0, 100))
+            head, nquad, tail = ef_mod.quad_split(ptrs, sizes, n)
+            assert head + nquad * ef_mod.QUAD + tail == n
+            assert min(head, nquad, tail) >= 0
+            phases = {(-p % (4 * s)) // s for p, s in zip(ptrs, sizes)}
+            if len(phases) == 1:
+                assert head < ef_mod.QUAD and tail < ef_mod.QUAD
+                if nquad:
+                    for p, s in zip(ptrs, sizes):
+                        assert (p + head * s) % (ef_mod.QUAD * s) == 0
+            else:
+                assert (head, nquad, tail) == (n, 0, 0)
+
+    @pytest.mark.parametrize("err", [0, 700])
+    def test_launch_arguments_and_failed_launch(self, monkeypatch, err):
+        """What the wrapper hands the kernel (bf16 g at offset 1 and f32
+        r at offset 1: a 3-element head in both, but fresh outputs, so the
+        whole vector as scalars), and that a launch error discards the
+        workspace and raises."""
+        calls = []
+        monkeypatch.setattr(ef_mod, "_WORKSPACES", StreamWorkspaces(2))
+        monkeypatch.setattr(ef_mod, "_lib", lambda defines=(): _fake_lib(
+            "repro_ef_topk", err, calls))
+        g = torch.ones(1000, dtype=torch.bfloat16)[1:]
+        r = torch.zeros(1000)[1:]
+        t = torch.tensor(0.5)
+        before = ef_mod.ef_topk.launches
+        if err:
+            with pytest.raises(RuntimeError, match="CUDA error 700"):
+                ef_mod._launch(g, r, t, _Stream(9))
+            assert ef_mod._WORKSPACES.keys() == []
+            assert ef_mod.ef_topk.launches == before
+        else:
+            out, res, nnz = ef_mod._launch(g, r, t, _Stream(9))
+            assert out.dtype == torch.bfloat16 and res.dtype == torch.float32
+            assert out.shape == res.shape == (999,)
+            assert nnz.dtype == torch.int32 and nnz.shape == ()
+            assert ef_mod._WORKSPACES.keys() == [(None, 9)]
+            assert ef_mod.ef_topk.launches == before + 1
+        (args,) = calls
+        assert args[0] == g.data_ptr() and args[1] == 1
+        assert args[2] == r.data_ptr() and args[3] == 0
+        assert args[4] == t.data_ptr()
+        # n, head, nquad: out and r' are fresh, so the phases differ and
+        # the head is the whole vector
+        assert args[8:11] == (999, 999, 0)
+        # the workspace, then the device index (the library sizes the grid
+        # from its SM count) and the stream
+        assert args[12:] == (0, 9)
+
+    def test_aligned_launch_takes_quads(self, monkeypatch):
+        """Fresh g and r share the outputs' phase: a quad body."""
+        calls = []
+        monkeypatch.setattr(ef_mod, "_WORKSPACES", StreamWorkspaces(2))
+        monkeypatch.setattr(ef_mod, "_lib", lambda defines=(): _fake_lib(
+            "repro_ef_topk", 0, calls))
+        g, r = torch.ones(4099), torch.ones(4099, dtype=torch.bfloat16)
+        ef_mod._launch(g, r, torch.tensor(1.0), _Stream(1))
+        (args,) = calls
+        head, nquad, tail = ef_mod.quad_split(
+            [g.data_ptr(), r.data_ptr(), args[5], args[6]], [4, 2, 4, 2],
+            4099)
+        assert args[8:11] == (4099, head, nquad) and nquad > 1000
+
+    def test_launch_from_a_given_library(self, monkeypatch):
+        """`lib=` launches from that library (a build variant), with the
+        same arguments but the fresh outputs and the same workspace as the
+        default one."""
+        calls, other = [], []
+        monkeypatch.setattr(ef_mod, "_WORKSPACES", StreamWorkspaces(2))
+        monkeypatch.setattr(ef_mod, "_lib", lambda defines=(): _fake_lib(
+            "repro_ef_topk", 0, other))
+        g, r, t = torch.ones(64), torch.ones(64), torch.tensor(0.5)
+        ef_mod._launch(g, r, t, _Stream(3),
+                       lib=_fake_lib("repro_ef_topk", 0, calls))
+        ef_mod._launch(g, r, t, _Stream(3))
+        assert len(calls) == len(other) == 1
+        assert calls[0][:5] + calls[0][8:] == other[0][:5] + other[0][8:]
+        assert ef_mod._WORKSPACES.keys() == [(None, 3)]
+
+    def test_too_long_raises(self, monkeypatch):
+        """nnz is int32: the wrapper refuses 2^31 elements or more (here
+        with the limit lowered to 8)."""
+        monkeypatch.setattr(ef_mod, "_MAX_ELEMS", 8)
+        ef_mod.ef_topk(torch.ones(7), torch.zeros(7), 0.5)
+        with pytest.raises(ValueError, match="int32"):
+            ef_mod.ef_topk(torch.ones(8), torch.zeros(8), 0.5)
