@@ -27,17 +27,51 @@ Phases (any failure exits non-zero and prints no result line):
             median of 30 launches, L2 flushed before each);
 3. cli      `run_fl(--task cnn_fmnist --method fedluck --error-feedback
             --rounds 3 --device cuda)` with the CLI's other defaults (10
-            devices, 4000 samples): finite accuracy, positive gbits, and
-            fused_momentum launches == sum of k over the cycles run;
-4. thresh   the same task and fleet planned with
-            compressor_override="topk_threshold" and error feedback, 2
-            rounds of the sequential engine: ef_topk launches == cycles and
+            devices, 4000 samples; the batched engine): finite accuracy,
+            positive gbits, one chunk row per cycle, and fused_momentum
+            launches == the sum over the dispatched chunks of the chunk's k
+            (chunks counted by wrapping AFLSimulator._dispatch_chunk);
+4. batched  cnn_fmnist at full width, `fedper` with error feedback: 10
+            devices, k = 10, δ = 0.1, one topk bucket, a 15 s round period
+            (every cycle, 3.3-13.5 s, lands within it, so each boundary
+            releases all 10 devices: chunks 8 + 2 per drain, 3 drains);
+            3 rounds on the batched and the sequential engine from
+            the same seed, in turns (batched, sequential, sequential,
+            batched): identical events with accuracy and loss taken out,
+            identical engine-agnostic metrics, counters, records (time,
+            round, gbits, staleness) and wire bits; after round 1 (one
+            drain from the same model) accuracy within 0.02 and loss
+            within rtol 1e-3, later rounds printed beside the sequential
+            engine's own turn-to-turn spread; fused_momentum launches == 10 x
+            chunks, fewer than the sequential run's; prints each wall.
+            Before the runs, the gradients themselves
+            (`launch.grad_accuracy.first_step_check`, 8 rows x 10 steps
+            at full width): wherever the batched and the sequential
+            engine's gradient paths take the same ReLU and max-pool
+            decisions, their gradients agree within 1e-5 (relative, per
+            row) and both lie within 1e-5 of float64; a decision they take
+            differently is within 1e-5 of a tie in float64. Then
+            a fedluck fleet with compressor_override="topk_threshold" and
+            k_grid [1, 2, 4, 8, 16, 30], 2 rounds of the batched engine:
+            ef_topk launches == cycles, magnitude_hist launches == 2 x
+            cycles, fused_momentum == the chunks' k summed;
+5. thresh   the same topk_threshold fleet without k_grid, 2 rounds of the
+            sequential engine: ef_topk launches == cycles and
             magnitude_hist launches == 2 x cycles;
-5. parity   a small run (mlp_micro, 4 devices, topk_threshold + EF) on the
-            card and on the CPU (plain versions) from the same weights:
-            identical wire bits, counters and staleness, accuracy within
-            0.02 and loss within rtol 1e-3;
-6. compact  compact_blocks bitwise (values, indices, counts, residual)
+6. ckpt     the CLI on the card with --ckpt-dir (--ckpt-every 1, a 15 s
+            round period so that uploads land in every segment) for 2
+            rounds, then --resume to 3: both runs ship bits (gbits > 0),
+            the resumed run starts at round 2 from the round-2
+            checkpoint's model and residuals bitwise, its round moves the
+            model, steps 2 and 3 are kept, and the saved residual stack
+            and model read back bitwise equal to residual_snapshot() and
+            to the stack on the card;
+7. parity   a small run (mlp_micro, 4 devices, topk_threshold + EF) on the
+            card and on the CPU (plain versions) from the same weights, on
+            the sequential and on the batched engine: identical wire bits,
+            counters and staleness, accuracy within 0.02 and loss within
+            rtol 1e-3;
+8. compact  compact_blocks bitwise (values, indices, counts, residual)
             against its plain version on nb x blk in {1x128, 8x64, 12x256}
             x budget in {1, 5, 32}, on blk in {100, 1000, 2048, 4096,
             10000} at budget 10 and budget = blk, on rows at a storage
@@ -47,7 +81,7 @@ Phases (any failure exits non-zero and prints no result line):
             shard's threshold solve (both magnitude_hist passes at k = 8130)
             held to exact counts; timed at [813, 1024], budget 10 (runs
             inside the kernels phase);
-7. pod      the multi-pod sync path (dist.steps.make_pod_round_step over
+9. pod      the multi-pod sync path (dist.steps.make_pod_round_step over
             dist.collectives.make_pod_sync, built by
             launch.profile_pod.build_pod_round): cnn_fmnist at full width, 4
             pods x 2 in-pod shards on the card, blk 1024 (nb 1626), δ 0.01
@@ -61,15 +95,17 @@ Phases (any failure exits non-zero and prints no result line):
             rtol 1e-5 / atol 1e-6 and bitwise residuals. Then one round at
             δ 0.3 resolves to `dense`: ef_topk 4, magnitude_hist 8
             launches. Prints the wall per round, local rounds vs sync;
-8. podparity  mlp_micro, 2 pods x 2 shards, blk 64, δ 0.05, on the card
+10. podparity  mlp_micro, 2 pods x 2 shards, blk 64, δ 0.05, on the card
             and on the CPU from the same weights and batches: per-pod
             losses within rtol 1e-3; the card's deltas synced on the CPU
             give bitwise residuals and params within rtol 1e-5.
 
 Kernel launch counts are set to 0 just before each main-path run and read
 just after it; launches made to compare a kernel with its plain version
-do not count. The line before the last is {"kernels": [...]}, the last
-line {"ok": true, "device": {...}}.
+do not count. The `kernels` line reports fused_momentum's launches from
+`cli`, ef_topk's and magnitude_hist's from `batched`'s topk_threshold run
+(the CLI's engine) and compact_blocks' from `pod`. The line before the
+last is {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -500,37 +536,72 @@ def counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def phase_cli(torch) -> int:
+class ChunkCounter:
+    """Counts the batched engine's chunk dispatches (their sizes and the
+    sum of their local k) by wrapping AFLSimulator._dispatch_chunk, so a
+    kernel's launch count is checked against chunks counted apart from
+    the kernel wrappers."""
+
+    def __enter__(self):
+        from repro_torch.core.simulator import AFLSimulator
+        self._cls, self._real = AFLSimulator, AFLSimulator._dispatch_chunk
+        self.sizes, self.steps = [], 0
+
+        def dispatch(sim, bkey, items, flat):
+            self.sizes.append(len(items))
+            self.steps += bkey[0]          # the bucket's local k
+            return self._real(sim, bkey, items, flat)
+        AFLSimulator._dispatch_chunk = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._dispatch_chunk = self._real
+
+
+def _sync(torch, dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_cli(torch, dev: str = "cuda") -> int:
     from repro_torch.launch import train
     with tempfile.TemporaryDirectory() as tmp:
         mpath = os.path.join(tmp, "metrics.json")
         args = train.build_parser().parse_args(
             ["--task", "cnn_fmnist", "--method", "fedluck",
-             "--error-feedback", "--rounds", "3", "--device", "cuda",
+             "--error-feedback", "--rounds", "3", "--device", dev,
              "--quiet", "--metrics-out", mpath])
-        t0 = time.perf_counter()
-        reset_counts()
-        res = train.run_fl(args)
-        torch.cuda.synchronize()
-        c = counts()
-        wall = time.perf_counter() - t0
+        with ChunkCounter() as chunks:
+            t0 = time.perf_counter()
+            reset_counts()
+            res = train.run_fl(args)
+            _sync(torch, dev)
+            c = counts()
+            wall = time.perf_counter() - t0
         with open(mpath) as f:
             metrics = json.load(f)
     local_k = metrics["histograms"]["sim.local_k"]
     log(f"[cli] {json.dumps(res)}")
-    log(f"[cli] wall {wall:.3f}s, cycles {local_k['count']}, sum k "
-        f"{local_k['sum']}, launches {c}")
+    log(f"[cli] engine {metrics['engine']}, wall {wall:.3f}s, cycles "
+        f"{local_k['count']}, chunks {len(chunks.sizes)} (sizes "
+        f"{chunks.sizes}), sum of the chunks' k {chunks.steps}, launches {c}")
     if not math.isfinite(res["final_accuracy"]) or res["gbits"] <= 0:
         fail(f"cli result not sane: {res}")
-    if res["rounds"] != 3:
-        fail(f"cli ran {res['rounds']} rounds, expected 3")
-    if c["fused_momentum"] != int(local_k["sum"]) or c["fused_momentum"] == 0:
-        fail(f"fused_momentum launched {c['fused_momentum']} times, sum of "
-             f"k over cycles is {local_k['sum']}")
+    if res["rounds"] != 3 or metrics["engine"] != "batched":
+        fail(f"cli ran {res['rounds']} rounds on the {metrics['engine']} "
+             f"engine, expected 3 on the batched one")
+    if sum(chunks.sizes) != local_k["count"]:
+        fail(f"chunks hold {sum(chunks.sizes)} rows for "
+             f"{local_k['count']} cycles")
+    if dev == "cuda" and (c["fused_momentum"] != chunks.steps
+                          or c["fused_momentum"] == 0):
+        fail(f"fused_momentum launched {c['fused_momentum']} times, the "
+             f"dispatched chunks' k sum to {chunks.steps}")
     return c["fused_momentum"]
 
 
-def _fleet(task_name: str, n: int, samples: int, k_max: int, compressor):
+def _fleet(task_name: str, n: int, samples: int, k_max: int, compressor,
+           method: str = "fedluck", k_grid=None):
     import torch
     from repro_torch.core.simulator import (make_heterogeneous_devices,
                                             plan_devices)
@@ -539,9 +610,139 @@ def _fleet(task_name: str, n: int, samples: int, k_max: int, compressor):
                      batch_size=32)
     flat = task.init_fn(torch.Generator().manual_seed(0))
     profiles = make_heterogeneous_devices(n, flat.numel() * 32, seed=0)
-    specs = plan_devices(profiles, "fedluck", 1.0, k_bounds=(1, k_max),
-                         compressor_override=compressor, error_feedback=True)
+    specs = plan_devices(profiles, method, 1.0, k_bounds=(1, k_max),
+                         compressor_override=compressor, error_feedback=True,
+                         k_grid=k_grid)
     return task, specs
+
+
+def _strip(events) -> list:
+    """Tracer events with the eval instants' accuracy and loss taken out."""
+    return [(e.track, e.name, e.ph, e.ts, e.dur,
+             tuple(a for a in e.args if a[0] not in ("accuracy", "loss")))
+            for e in events]
+
+
+def _same_host_results(a: dict, b: dict, what: str,
+                       max_round: float = math.inf) -> None:
+    """Fails unless two runs agree host-side exactly (events, counters,
+    records, wire bits) and, in the records up to `max_round`, in
+    accuracy and loss within 0.02 / rtol 1e-3."""
+    if a["events"] != b["events"] or a["hist"].counters != b["hist"].counters:
+        fail(f"{what}: events or counters differ")
+    if a["sim"].agg.total_bits != b["sim"].agg.total_bits:
+        fail(f"{what}: wire bits {a['sim'].agg.total_bits} vs "
+             f"{b['sim'].agg.total_bits}")
+    for x, y in zip(a["hist"].records, b["hist"].records):
+        if (x.time, x.round, x.gbits, x.mean_staleness) != \
+                (y.time, y.round, y.gbits, y.mean_staleness):
+            fail(f"{what}: records differ: {x} vs {y}")
+        if x.round <= max_round and (
+                abs(x.accuracy - y.accuracy) > 0.02
+                or abs(x.loss - y.loss) > 1e-3 * abs(y.loss) + 1e-6):
+            fail(f"{what}: accuracy/loss differ: {x} vs {y}")
+    if len(a["hist"].records) != len(b["hist"].records):
+        fail(f"{what}: {len(a['hist'].records)} vs "
+             f"{len(b['hist'].records)} records")
+
+
+def _sim_run(torch, task, specs, engine: str, rounds: int, dev: str,
+             **kw) -> dict:
+    """One simulator run with a tracer and metrics; the launch counts and
+    chunk counts of exactly this run, and its wall."""
+    from repro_torch.core.simulator import AFLSimulator
+    from repro_torch.obs import MetricsRegistry, Tracer
+    tr, m = Tracer(), MetricsRegistry()
+    sim = AFLSimulator(task, specs, "periodic", engine=engine, device=dev,
+                       tracer=tr, metrics=m, **kw)
+    with ChunkCounter() as chunks:
+        _sync(torch, dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = sim.run(total_rounds=rounds, eval_every=1)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        c = counts()
+    sim.close()
+    return dict(sim=sim, hist=hist, events=_strip(tr.events), metrics=m,
+                wall=wall, launches=c, chunks=chunks,
+                cycles=int(m.counter("sim.cycles").value))
+
+
+def phase_batched(torch, dev: str = "cuda") -> dict:
+    """The batched engine at full cnn width against the sequential one,
+    then its topk_threshold buckets; returns the launch counts of the
+    topk_threshold run."""
+    import copy
+    from repro_torch.launch.grad_accuracy import TIE, TOL, first_step_check
+    chk = first_step_check(torch.device(dev))
+    log(f"[batched] gradients, batched vs sequential path, 8 rows x 10 "
+        f"steps: {json.dumps(chk)}")
+    if not chk["ok"]:
+        fail(f"the batched engine's gradients differ from the sequential "
+             f"engine's beyond {TOL} where they take the same ReLU and pool "
+             f"decisions, or decide differently {TIE} or more from a tie")
+    task, specs = _fleet("cnn_fmnist", 10, 4000, 30, None, method="fedper")
+    if {(s.plan.k, s.plan.delta, s.compressor) for s in specs} != \
+            {(10, 0.1, "topk")}:
+        fail("the fedper fleet is not k = 10, δ = 0.1, topk")
+    runs = [_sim_run(torch, task, copy.deepcopy(specs), engine, 3, dev,
+                     round_period=15.0)
+            for engine in ("batched", "sequential", "sequential",
+                           "batched")]
+    seq = runs[1]
+    for r in runs:
+        log(f"[batched] {r['sim'].engine}: wall {r['wall']:.6f}s, cycles "
+            f"{r['cycles']}, chunks {r['chunks'].sizes}, launches "
+            f"{r['launches']}, final acc {r['hist'].records[-1].accuracy} "
+            f"loss {r['hist'].records[-1].loss}")
+    # Accuracy and loss are held to the tolerance after the first drain,
+    # where both engines start from the same model; the gradients behind
+    # it are held to fp32 above. Later rounds are printed: two equally
+    # exact fp32 runs of this fleet (the sequential engine with cuDNN's
+    # convolutions or PyTorch's own) already differ there by up to 0.039
+    # in accuracy and 1.3e-3 in relative loss (`launch.grad_accuracy
+    # --fleet-seeds 4` on the H100), as do two turns of the sequential
+    # engine (cuDNN's nondeterministic kernels), so no gate there could
+    # tell an engine fault from rounding.
+    for i in (0, 2, 3):
+        _same_host_results(runs[i], seq, f"batched run vs sequential "
+                           f"(turn {i})", max_round=1)
+        if runs[i]["metrics"].snapshot(engine_agnostic=True) != \
+                seq["metrics"].snapshot(engine_agnostic=True):
+            fail(f"turn {i}: engine-agnostic metrics differ")
+    for b in (runs[0], runs[3]):
+        sizes, fm = b["chunks"].sizes, b["launches"]["fused_momentum"]
+        if sizes != [8, 2] * 3 or b["cycles"] != 30:
+            fail(f"chunks {sizes} for {b['cycles']} cycles, expected 8 + 2 "
+                 f"in each of 3 drains")
+        if dev == "cuda" and (fm != 10 * len(sizes) or fm != b["chunks"].steps
+                              or fm >= seq["launches"]["fused_momentum"]):
+            fail(f"batched fused_momentum launches {fm} for {len(sizes)} "
+                 f"chunks (sequential {seq['launches']['fused_momentum']})")
+    for i in (0, 2, 3):
+        log(f"[batched] turn {i} vs turn 1, (round, Δacc, Δloss): " + str(
+            [(x.round, x.accuracy - y.accuracy, x.loss - y.loss)
+             for x, y in zip(runs[i]["hist"].records, seq["hist"].records)]))
+    log(f"[batched] batched == sequential host-side in 3 turns; walls (s) "
+        f"batched {runs[0]['wall']:.6f} / {runs[3]['wall']:.6f}, "
+        f"sequential {runs[1]['wall']:.6f} / {runs[2]['wall']:.6f}")
+
+    task, specs = _fleet("cnn_fmnist", 10, 4000, 30, "topk_threshold",
+                         k_grid=[1, 2, 4, 8, 16, 30])
+    th = _sim_run(torch, task, specs, "batched", 2, dev)
+    c, r = th["launches"], th["hist"].records[-1]
+    log(f"[batched] topk_threshold: wall {th['wall']:.6f}s, cycles "
+        f"{th['cycles']}, chunks {th['chunks'].sizes}, acc {r.accuracy} "
+        f"loss {r.loss}, launches {c}")
+    if not (math.isfinite(r.accuracy) and math.isfinite(r.loss)):
+        fail("batched topk_threshold run gave a non-finite result")
+    if dev == "cuda" and (th["cycles"] == 0 or c["ef_topk"] != th["cycles"]
+                          or c["magnitude_hist"] != 2 * th["cycles"]
+                          or c["fused_momentum"] != th["chunks"].steps):
+        fail(f"batched topk_threshold launches {c} for {th['cycles']} "
+             f"cycles, chunks' k {th['chunks'].steps}")
+    return c
 
 
 def phase_threshold(torch) -> dict:
@@ -568,35 +769,100 @@ def phase_threshold(torch) -> dict:
     return c
 
 
-def phase_parity(torch) -> None:
-    from repro_torch.core.simulator import AFLSimulator
-    from repro_torch.obs import Tracer
+def phase_ckpt(torch, dev: str = "cuda") -> None:
+    """The CLI's checkpoint and resume on the card: 2 rounds saved round
+    by round, then `--resume` to 3. A 15 s round period lets uploads land
+    in every segment (each segment restarts the simulated clock)."""
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
 
-    def run(device):
+    seen = {}
+    real_restore, real_state = train.restore_fl_state, train.fl_ckpt_state
+
+    def restore(sim, state):
+        real_restore(sim, state)
+        seen["resumed_at"] = sim.model.round
+        seen["restored"] = (np.array(sim.model.w), sim.residual_snapshot())
+
+    def state(sim):
+        seen["sim"] = sim
+        return real_state(sim)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        flags = ["--task", "cnn_fmnist", "--method", "fedluck",
+                 "--error-feedback", "--device", dev, "--quiet",
+                 "--round-period", "15", "--ckpt-dir", tmp,
+                 "--ckpt-every", "1"]
+        ap = train.build_parser()
+        train.restore_fl_state, train.fl_ckpt_state = restore, state
+        try:
+            first = train.run_fl(ap.parse_args(flags + ["--rounds", "2"]))
+            resumed = train.run_fl(ap.parse_args(
+                flags + ["--rounds", "3", "--resume"]))
+        finally:
+            train.restore_fl_state, train.fl_ckpt_state = \
+                real_restore, real_state
+        mgr = CheckpointManager(tmp)
+        steps, saved2, saved = mgr.steps(), mgr.restore(2), mgr.restore()
+    sim = seen["sim"]
+    ids, snap = sim.residual_snapshot()
+    n = len(ids)
+    log(f"[ckpt] first run {json.dumps(first)}")
+    log(f"[ckpt] resumed at round {seen.get('resumed_at')}: "
+        f"{json.dumps(resumed)}; steps kept {steps}")
+    if first["rounds"] != 2 or resumed["rounds"] != 3 \
+            or seen.get("resumed_at") != 2 or steps != [2, 3]:
+        fail(f"checkpoint/resume: rounds {first['rounds']} then "
+             f"{resumed['rounds']}, resumed at {seen.get('resumed_at')}, "
+             f"steps {steps}")
+    if not (first["gbits"] > 0 and resumed["gbits"] > 0
+            and math.isfinite(resumed["final_accuracy"])):
+        fail("a segment landed no upload or gave a non-finite result")
+    w_back, (ids_back, res_back) = seen["restored"]
+    if not (np.array_equal(w_back.view(np.uint32),
+                           saved2["w"].view(np.uint32))
+            and np.array_equal(ids_back, saved2["residual_ids"])
+            and np.array_equal(res_back.view(np.uint32),
+                               saved2["residuals"].view(np.uint32))):
+        fail("the resumed run did not start from the round-2 checkpoint")
+    if int(saved["round"]) != 3 or not np.array_equal(saved["residual_ids"],
+                                                      ids):
+        fail(f"saved round {saved['round']}, ids {saved['residual_ids']}")
+    if not (np.array_equal(saved["residuals"].view(np.uint32),
+                           snap.view(np.uint32))
+            and np.array_equal(saved["w"].view(np.uint32),
+                               np.asarray(sim.model.w).view(np.uint32))):
+        fail("the saved residuals or model differ from the run's")
+    on_card = sim._res_stack[:n]
+    if on_card.device.type != dev or not torch.equal(
+            torch.from_numpy(saved["residuals"]).to(dev).view(torch.int32),
+            on_card.view(torch.int32)):
+        fail("the saved residual stack differs from the stack on the card")
+    moved = float(np.abs(saved["w"] - saved2["w"]).max())
+    if not (np.abs(saved["residuals"]).sum() > 0 and moved > 0):
+        fail(f"the resumed round moved the model by {moved} or left the "
+             f"residuals all zero")
+    log(f"[ckpt] resumed from the round-2 checkpoint bitwise; round 3 moved "
+        f"the model by up to {moved:.3e}; residual stack [{n}, "
+        f"{snap.shape[1]}] and model read back bitwise equal to "
+        f"residual_snapshot() and the stack on {dev}")
+
+
+def phase_parity(torch, dev: str = "cuda") -> None:
+    def run(device, engine):
         task, specs = _fleet("mlp_micro", 4, 600, 8, "topk_threshold")
-        tr = Tracer()
-        sim = AFLSimulator(task, specs, "periodic", engine="sequential",
-                           device=device, seed=3, tracer=tr)
-        h = sim.run(total_rounds=4, eval_every=1)
-        strip = [(e.track, e.name, e.ph, e.ts, e.dur,
-                  tuple(a for a in e.args if a[0] not in ("accuracy", "loss")))
-                 for e in tr.events]
-        return h, strip
+        return _sim_run(torch, task, specs, engine, 4, device, seed=3)
 
-    hc, ec = run("cuda")
-    hh, eh = run("cpu")
-    if ec != eh or hc.counters != hh.counters:
-        fail("card and CPU runs differ in events or counters")
-    for a, b in zip(hc.records, hh.records):
-        if (a.time, a.round, a.gbits, a.mean_staleness) != \
-                (b.time, b.round, b.gbits, b.mean_staleness):
-            fail(f"records differ: {a} vs {b}")
-        if abs(a.accuracy - b.accuracy) > 0.02 or \
-                abs(a.loss - b.loss) > 1e-3 * abs(b.loss) + 1e-6:
-            fail(f"accuracy/loss differ: {a} vs {b}")
-    log(f"[parity] card vs CPU: {len(ec)} identical events, final acc "
-        f"{hc.records[-1].accuracy} vs {hh.records[-1].accuracy}, loss "
-        f"{hc.records[-1].loss} vs {hh.records[-1].loss}")
+    for engine in ("sequential", "batched"):
+        card, host = run(dev, engine), run("cpu", engine)
+        _same_host_results(card, host, f"card vs CPU ({engine})")
+        log(f"[parity] {engine}: card vs CPU {len(card['events'])} "
+            f"identical events, final acc "
+            f"{card['hist'].records[-1].accuracy} vs "
+            f"{host['hist'].records[-1].accuracy}, loss "
+            f"{card['hist'].records[-1].loss} vs "
+            f"{host['hist'].records[-1].loss}")
 
 
 def _padded(torch, flat, nb: int, blk: int):
@@ -774,14 +1040,16 @@ def main() -> int:
         phase_build(torch)
         rows = phase_kernels(torch)
         fm = phase_cli(torch)
-        th = phase_threshold(torch)
+        bt = phase_batched(torch)
+        phase_threshold(torch)
+        phase_ckpt(torch)
         phase_parity(torch)
         pod = phase_pod(torch)
         phase_podparity(torch)
     except CheckFailed as e:
         fail(str(e))
-    launches = {"fused_momentum": fm, "ef_topk": th["ef_topk"],
-                "magnitude_hist": th["magnitude_hist"],
+    launches = {"fused_momentum": fm, "ef_topk": bt["ef_topk"],
+                "magnitude_hist": bt["magnitude_hist"],
                 "compact_blocks": pod["compact_blocks"]}
     meta = {
         "fused_momentum": ("triton", "src/repro_torch/kernels/fused_momentum.py",

@@ -239,7 +239,9 @@ class Compressor:
     def __call__(self, g: torch.Tensor,
                  key: torch.Generator | None = None) -> Compressed:
         if self.needs_key:
-            return self.fn(g, key)
+            # by keyword: `randk`'s fn is partial(randk, rate=...), whose
+            # second positional parameter is the rate
+            return self.fn(g, key=key)
         return self.fn(g)
 
 

@@ -1,29 +1,50 @@
 """Event-driven AFL simulator with a simulated wall clock (paper Sec 4.3).
 
-PyTorch port of `repro.core.simulator`, sequential engine. Real training
-on a torch device, simulated time: each device runs its k_i local
-momentum-SGD steps — one `fused_momentum` launch per step, in place on a
-flat fp32 parameter buffer whose views are the model's parameters —
+PyTorch port of `repro.core.simulator`. Real training on a torch device,
+simulated time: each device runs its k_i local momentum-SGD steps —
+`fused_momentum` launches, in place on flat fp32 parameter buffers —
 compresses the pseudo-gradient (Eq. 4) with its δ_i, and "uploads": the
 upload lands on the simulated clock at  t + k_i·α_i + rate_i·β_i  (Eq. 5).
 The server strategy decides when aggregation happens (periodic / buffered
 / async / sync) and the simulator hands fresh global models back to
 devices.
 
-Engines: only engine="sequential" is ported — one Python cycle per start
-event, one dense host pull per arrival, EF residuals kept on the device
-per device id. The reference's batched engine is bitwise equal to its
-sequential one, so the port's event timeline, staleness, wire bits and
-fault counters are identical to either; engine="batched" raises until it
-is ported (ROADMAP.md, queue 1, item 6).
+Two engines share the same event semantics, as in the reference:
 
-Everything host-side is the reference's code: the event heap, the fault
-models (crash windows, lossy channel with retries, drift, corruption),
-the sanitizer, controller re-plans, the three `wire_accounting` modes
-(payload / strict / analytic) and the tracer, metrics and timer seams.
-The host RNG is consumed in the reference's order — one `self.rng.randint`
-per cycle even when the compressor ignores the key — so the same seed
-gives the same timeline.
+  engine="batched" (default) — start events that no aggregation can
+  separate are drained from the heap together, grouped into plan-time
+  buckets (same local k / compressor / top-k band / error feedback), split
+  into exact power-of-two chunks, and each chunk runs as ONE local round
+  over a stacked [B, d] parameter buffer (`dist.steps.
+  batched_local_round`: `vmap(grad)` gradients and one `fused_momentum`
+  launch per step for the whole chunk; a one-row chunk runs the
+  sequential engine's `dist.steps.local_round`). Compression runs per
+  row; EF residuals live in one [N+1, d] device stack whose chunk rows
+  are gathered and written back in place (`index_copy_`), and sparse
+  payloads come off the device as one compact (values, indices) pull per
+  chunk. Mixed δ_i within a top-k band use `compression.topk_capped`.
+  For a model without convolutions the engine is bitwise equal to the
+  sequential one on the CPU. A vmapped convolution is a grouped one and
+  rounds differently; where a max-pool window's two largest inputs are
+  closer than that rounding, the engines route the window's gradient to
+  different inputs (`launch.grad_accuracy` counts them), so for a CNN
+  only the host-side results stay identical.
+
+  engine="sequential" — one Python cycle per start event, one dense host
+  pull per arrival, EF residuals kept on the device per device id.
+
+The reference's engines are bitwise equal to each other, so the port's
+event timeline, staleness, wire bits and fault counters are identical to
+either of them, and the `engine.*` metrics are those of the reference's
+engine of the same name.
+
+Everything host-side is the reference's code: the event heap and its
+drain, the fault models (crash windows, lossy channel with retries,
+drift, corruption), the sanitizer, controller re-plans, the three
+`wire_accounting` modes (payload / strict / analytic) and the tracer,
+metrics and timer seams. The host RNG is consumed in the reference's
+order — one `self.rng.randint` per cycle even when the compressor ignores
+the key — so the same seed gives the same timeline.
 """
 from __future__ import annotations
 
@@ -45,7 +66,8 @@ from repro_torch.core.aggregation import (Arrival, GlobalModel,
 from repro_torch.core import factor
 from repro_torch.core.controller import DeviceProfile, FedLuckController
 from repro_torch.core.factor import Plan
-from repro_torch.dist.steps import local_round
+from repro_torch.dist.steps import batched_local_round, local_round
+from repro_torch.kernels import ops
 from repro_torch.obs import profiling as _prof
 from repro_torch.obs.metrics import STALENESS_BUCKETS
 from repro_torch.obs.profiling import PhaseTimers
@@ -149,6 +171,33 @@ class History:
         return float(np.mean([r.accuracy for r in self.records[-window:]]))
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+# Largest chunk a bucket dispatches at once. Chunks are exact binary
+# decompositions of the bucket occupancy (10 -> 8+2), so no row is ever a
+# padded duplicate, and each bucket meets at most log2(cap)+1 chunk shapes
+# over a whole run.
+_CHUNK_CAP = 16
+
+
+def _chunk_sizes(n: int, cap: int = _CHUNK_CAP) -> list[int]:
+    out, size = [], cap
+    while n:
+        while size > n:
+            size >>= 1
+        reps, n = divmod(n, size)
+        out.extend([size] * reps)
+    return out
+
+
+# Compressors whose payload carries explicit indices → compact wire pull.
+# Shared with the wire-bit accounting (compression.sparse_wire) so the
+# charged shape and the shipped shape agree.
+_SPARSE_WIRE = C.SPARSE_WIRE
+
+
 # ------------------------------------------------------------------ simulator
 class AFLSimulator:
     def __init__(self, task: TrainTask, devices: list[DeviceSpec],
@@ -161,13 +210,10 @@ class AFLSimulator:
                  sanitizer=None, count_index_bits: bool = False,
                  wire_accounting: str = "payload",
                  strategy_kwargs: dict | None = None,
-                 engine: str = "sequential", tracer=None, metrics=None,
-                 timers=None, device: str | torch.device = "cuda"):
-        if engine == "batched":
-            raise NotImplementedError(
-                "engine='batched' is not ported yet (ROADMAP.md, queue 1, "
-                "item 6: batched engine); use engine='sequential'")
-        if engine != "sequential":
+                 engine: str = "batched", prefetch: int = 0, tracer=None,
+                 metrics=None, timers=None,
+                 device: str | torch.device = "cuda"):
+        if engine not in ("batched", "sequential"):
             raise ValueError(f"unknown engine {engine}")
         if wire_accounting not in ("payload", "strict", "analytic"):
             raise ValueError(f"unknown wire_accounting {wire_accounting!r}")
@@ -197,6 +243,7 @@ class AFLSimulator:
         self.strategy_name = strategy
         self.rng = np.random.RandomState(seed)
         self.engine = engine
+        self._batched = engine == "batched"
         self.events_processed = 0
 
         # ---- params / flat spec
@@ -218,7 +265,7 @@ class AFLSimulator:
             self.agg.sanitizer = sanitizer
 
         # ---- per-client data (numpy streams, seeded as in the reference)
-        from repro_torch.data.pipeline import DataLoader
+        from repro_torch.data.pipeline import DataLoader, StackedLoader
         n = len(task.dataset)
         if client_indices is None:
             from repro_torch.data.partition import iid_partition
@@ -228,15 +275,43 @@ class AFLSimulator:
                             seed=seed + 17 * did)
             for did, idx in zip(sorted(self.devices), client_indices)}
 
+        # ---- device id <-> residual-stack row (row N is a spare row, as
+        # in the reference)
         self._dids = sorted(self.devices)
-        # ---- EF residuals: one device tensor per device id
-        self._residuals: dict[int, torch.Tensor] = {
-            did: torch.zeros((self.dim,), dtype=torch.float32,
-                             device=self.device)
-            for did in self._dids}
+        self._rowof = {did: i for i, did in enumerate(self._dids)}
+        self._has_ef = any(s.error_feedback for s in devices)
+
+        # ---- EF residuals: one [N+1, d] device stack (batched) or one
+        # device tensor per device id (sequential). prefetch > 0 draws
+        # per-step batches ahead on a thread; the draws, re-plans included,
+        # are those of prefetch=0 (data.pipeline.StackedLoader)
+        self._res_stack: torch.Tensor | None = None
+        self._residuals: dict[int, torch.Tensor] = {}
+        self._stacked = {}
+        if self._batched:
+            if self._has_ef:
+                self._res_stack = torch.zeros(
+                    (len(self._dids) + 1, self.dim), dtype=torch.float32,
+                    device=self.device)
+            self._stacked = {
+                did: StackedLoader(self.loaders[did],
+                                   self.devices[did].plan.k, prefetch)
+                for did in self._dids}
+            self._plan_buckets()
+        else:
+            self._residuals = {
+                did: torch.zeros((self.dim,), dtype=torch.float32,
+                                 device=self.device)
+                for did in self._dids}
         self._compress_fns: dict[tuple, C.Compressor] = {}
+        self._bucket_fns: dict[tuple, Callable] = {}
         self._test_batch = self._to_device(task.test_batch)
         self._stal_ptr = 0   # staleness_log watermark for per-eval windows
+
+    def close(self) -> None:
+        """Stop prefetch threads (safe to call more than once)."""
+        for sl in self._stacked.values():
+            sl.close()
 
     def _phase(self, name: str):
         """Wall-clock phase context (obs.PhaseTimers) or a shared no-op."""
@@ -347,20 +422,161 @@ class AFLSimulator:
             dense = cc.dense().to("cpu").numpy()
         return dense, cc.wire_bits
 
+    # -------------------------------------------------- batched bucket engine
+    def _bucket_key(self, s: DeviceSpec) -> tuple:
+        """Plan-time bucket id. `topk` buckets by local k and a power-of-two
+        band over k_i = δ_i·d (mixed δ_i within a band share one chunk
+        through a per-row k under the band's cap); δ_i = 1 devices get a
+        dedicated "full" band whose payload is the accumulator itself — no
+        sort at all. Other compressors need one δ per bucket, so δ joins
+        the key."""
+        if s.compressor == "topk":
+            keep = C.num_keep(self.dim, s.plan.delta)
+            band = "full" if keep >= self.dim else _next_pow2(keep)
+            return (s.plan.k, "topk", band, s.error_feedback, s._ckw_key())
+        return (s.plan.k, s.compressor, float(s.plan.delta),
+                s.error_feedback, s._ckw_key())
+
+    def _plan_buckets(self) -> None:
+        members: dict[tuple, list[int]] = {}
+        for did in self._dids:
+            members.setdefault(self._bucket_key(self.devices[did]),
+                               []).append(did)
+        self._bucket_kcap = {}
+        for bkey, dids in members.items():
+            if bkey[1] == "topk" and bkey[2] != "full":
+                self._bucket_kcap[bkey] = max(
+                    C.num_keep(self.dim, self.devices[d].plan.delta)
+                    for d in dids)
+
+    @staticmethod
+    def _bucket_sparse(bkey: tuple) -> bool:
+        """True when the bucket's payload is a (values, indices) pair.
+        The full-rate topk band ships dense: its payload IS the
+        pseudo-gradient, and an index vector would be a d-length iota."""
+        return bkey[1] in _SPARSE_WIRE and bkey[2] != "full"
+
+    def _bucket_fn(self, bkey: tuple, P: int) -> Callable:
+        """The computation of a chunk of P same-bucket cycles:
+        chunk(flat, res_rows | None, steps, seeds, krows) -> (payload,
+        new_res_rows | None, [strict bits]). Cached per (bucket, P, k-cap)
+        like the reference's jit cache, and each miss counts as
+        `engine.bucket_compiles`: a re-plan can change which δ_i share a
+        band, and a chunk built for the old (smaller) cap would truncate
+        the new bucket's selection."""
+        cache_key = (bkey, P, self._bucket_kcap.get(bkey))
+        if cache_key in self._bucket_fns:
+            return self._bucket_fns[cache_key]
+        if self._metrics is not None:   # a new (bucket, chunk-shape) entry
+            self._metrics.counter("engine.bucket_compiles").inc()
+        _, name, delta, ef, ckw = bkey
+        dim, dev, spec = self.dim, self.device, self.spec
+        sparse = self._bucket_sparse(bkey)
+        needs_key = False
+
+        if name == "topk_threshold":
+            # the kernel path, as the sequential engine runs it: two
+            # magnitude_hist launches and one ef_topk launch over g + res,
+            # which also writes the new residual
+            kw, kcap = dict(ckw), C.num_keep(dim, delta)
+
+            def row(g, res, gen, krow):
+                cc, new_res = C.topk_threshold_ef(
+                    g, torch.zeros_like(g) if res is None else res, delta,
+                    **kw)
+                return ops.compact_topk(cc.values, kcap), new_res, \
+                    cc.wire_bits
+        else:
+            if name == "topk" and delta == "full":
+                # top-d of d is the identity: ship the accumulator itself
+                def compress(acc, gen, krow):
+                    return acc, acc, C._f32(krow * 64.0)
+            elif name == "topk":
+                kcap = self._bucket_kcap[bkey]
+
+                def compress(acc, gen, krow):
+                    cc = C.topk_capped(acc, krow, k_cap=kcap)
+                    return (cc.values, cc.indices), cc.dense(), cc.wire_bits
+            else:
+                comp = C.make_compressor(name, delta, **dict(ckw))
+                needs_key = comp.needs_key
+
+                def compress(acc, gen, krow):
+                    cc = comp(acc, gen)
+                    dense = cc.dense()
+                    payload = (cc.values, cc.indices) if sparse else dense
+                    return payload, dense, cc.wire_bits
+
+            def row(g, res, gen, krow):
+                acc = g if res is None else g + res   # ef_compress, inlined
+                payload, dense, bits = compress(acc, gen, krow)
+                return payload, None if res is None else acc - dense, bits
+
+        def chunk(flat, res_rows, steps, seeds, krows):
+            with _prof.annotate("sim.local_round"):
+                if P == 1:
+                    # one row batches nothing: the sequential engine's
+                    # autograd round, without vmap's host cost
+                    g = self._local_round(
+                        flat, [{key: v[0] for key, v in step.items()}
+                               for step in steps])[None]
+                else:
+                    g = batched_local_round(
+                        self.task.loss_fn,
+                        momentum_sgd(self.eta_l, self.momentum), flat, spec,
+                        steps)
+            payloads, new_rows, bits = [], [], []
+            with _prof.annotate("sim.compress"):
+                for i in range(P):
+                    gen = (torch.Generator(device=dev).manual_seed(
+                        int(seeds[i])) if needs_key else None)
+                    payload, new_res, b = row(
+                        g[i], None if res_rows is None else res_rows[i],
+                        gen, krows[i])
+                    payloads.append(payload)
+                    new_rows.append(new_res)
+                    bits.append(b)
+            if sparse:
+                payload = (torch.stack([p[0] for p in payloads]),
+                           torch.stack([p[1] for p in payloads]))
+            else:
+                payload = torch.stack(payloads)
+            return payload, torch.stack(new_rows) if ef else None, bits
+
+        self._bucket_fns[cache_key] = chunk
+        return chunk
+
     # ------------------------------------------------------------- residual IO
     def residual_snapshot(self) -> tuple[np.ndarray, np.ndarray]:
         """(device_ids, stacked [N, d] residuals) — checkpoint payload."""
         ids = np.asarray(self._dids, np.int64)
-        stack = (torch.stack([self._residuals[d] for d in self._dids])
-                 .to("cpu").numpy() if self._dids
-                 else np.zeros((0, self.dim), np.float32))
+        if self._batched:
+            if self._res_stack is None:
+                stack = np.zeros((len(self._dids), self.dim), np.float32)
+            else:
+                stack = self._res_stack[:len(self._dids)].to(
+                    "cpu", copy=True).numpy()
+        else:
+            stack = (torch.stack([self._residuals[d] for d in self._dids])
+                     .to("cpu").numpy() if self._dids
+                     else np.zeros((0, self.dim), np.float32))
         return ids, stack
 
     def load_residuals(self, ids: np.ndarray, stacked: np.ndarray) -> None:
         """Restore per-device EF residuals from a checkpoint payload."""
-        for i, did in enumerate(np.asarray(ids).tolist()):
-            self._residuals[int(did)] = torch.as_tensor(
-                np.asarray(stacked[i], np.float32)).to(self.device)
+        if self._batched:
+            if self._res_stack is None:
+                self._res_stack = torch.zeros(
+                    (len(self._dids) + 1, self.dim), dtype=torch.float32,
+                    device=self.device)
+            rows = torch.as_tensor([self._rowof[int(d)] for d in ids],
+                                   dtype=torch.long, device=self.device)
+            self._res_stack.index_copy_(0, rows, torch.as_tensor(
+                np.asarray(stacked, np.float32)).to(self.device))
+        else:
+            for i, did in enumerate(np.asarray(ids).tolist()):
+                self._residuals[int(did)] = torch.as_tensor(
+                    np.asarray(stacked[i], np.float32)).to(self.device)
 
     def _alpha_mult(self, did: int, t: float) -> float:
         """Straggler-drift α multiplier active for a device at time t."""
@@ -382,7 +598,8 @@ class AFLSimulator:
     # ----------------------------------------------------- fault-model helpers
     def _maybe_replan(self, did: int, t: float) -> None:
         """Feed observed α/β into the controller; apply a drift-triggered
-        re-plan to the device (new k/δ). Called at cycle start, as in the
+        re-plan to the device (new k/δ; batched loader and buckets
+        rebuilt). Called at cycle start in both engines, as in the
         reference, so the event timelines stay identical."""
         if self.controller is None:
             return
@@ -403,6 +620,11 @@ class AFLSimulator:
         if self._metrics is not None:
             self._metrics.counter("sim.replans").inc()
         spec.plan = plan
+        if self._batched:
+            # the stacked loader's queue holds per-step batches, so the new
+            # k applies from the next round with no prefetched data wasted
+            self._stacked[did].set_k(plan.k)
+            self._plan_buckets()
 
     def _schedule_upload(self, did: int, t: float
                          ) -> tuple[float | None, float | None, int, bool,
@@ -500,6 +722,129 @@ class AFLSimulator:
                 self._metrics.counter("sim.wire_header_bits").inc(header)
         return bits + header
 
+    def _process_starts_batched(self, starts: list, push) -> None:
+        """Run a drained batch of device cycles through bucketed chunk
+        dispatches. `starts` is [(t, did, model_round, arrive, attempts,
+        corrupt, ch_delivered)] in heap-pop order, with the upload outcome
+        already resolved at drain time (`_schedule_upload`); arrivals are
+        pushed back in that same order so heap tie-breaking (and the host
+        RNG stream) match the sequential engine exactly. Lost cycles (crash
+        or channel give-up: arrive is None) are still dispatched — their
+        compute advances the loader, RNG, and EF residual exactly like the
+        sequential engine — but land no arrival (their restart event was
+        pushed during the drain).
+
+        Two phases, as in the reference: dispatch every chunk of every
+        bucket first (the card runs a chunk while the host stacks the next
+        one's batches), then pull the payloads."""
+        order = []
+        for t, did, mr, arrive, attempts, corrupt, ch_del in starts:
+            stacked = self._stacked[did].next()
+            seed = self.rng.randint(0, 2 ** 31 - 1)
+            order.append((t, did, mr, stacked, seed))
+
+        buckets: dict[tuple, list] = {}
+        for item in order:
+            buckets.setdefault(self._bucket_key(self.devices[item[1]]),
+                               []).append(item)
+        if self._metrics is not None:
+            m = self._metrics
+            m.histogram("engine.drain_size", _SIZE_BUCKETS).observe(
+                len(starts))
+            m.gauge("engine.buckets").set(len(buckets))
+            occ = m.histogram("engine.bucket_occupancy", _SIZE_BUCKETS)
+            for items in buckets.values():
+                occ.observe(len(items))
+        # one host->device model upload per drain: no aggregation lands
+        # inside a drain, so every chunk reads the same global model
+        flat = torch.tensor(self.model.w, device=self.device)
+        pending = []
+        chunk_hist = (self._metrics.histogram("engine.chunk_size",
+                                              _SIZE_BUCKETS)
+                      if self._metrics is not None else None)
+        with self._phase("dispatch"):
+            for bkey, items in buckets.items():
+                pos = 0
+                for size in _chunk_sizes(len(items)):
+                    if chunk_hist is not None:
+                        chunk_hist.observe(size)
+                    pending.append(self._dispatch_chunk(
+                        bkey, items[pos:pos + size], flat))
+                    pos += size
+        results: dict[int, tuple] = {}
+        with self._phase("collect"):
+            for rec in pending:
+                self._collect_chunk(rec, results)
+
+        for t, did, mr, arrive, attempts, corrupt, ch_del in starts:
+            update, bits = results[did]
+            if self.channel is not None and ch_del is not None:
+                self.channel.charge_wire(bits, attempts, ch_del)
+            if arrive is None:
+                continue   # upload lost; compute ran, restart already queued
+            if corrupt:
+                update = self._poison(update)
+            push(arrive, "arrival", Arrival(did, update, mr, bits * attempts,
+                                            arrive))
+
+    def _dispatch_chunk(self, bkey: tuple, items: list, flat: torch.Tensor):
+        """Run one exact power-of-two chunk of same-bucket cycles; returns
+        the record `_collect_chunk` pulls. The chunk's batches go to the
+        device in one copy per array, as [k, B, ...] so each step's
+        [B, ...] slice is contiguous; the chunk's residual rows are
+        gathered and written back in place."""
+        B = len(items)
+        if B == 1:
+            # no stacking: a [k, 1, ...] view of the loader's stack
+            host = {key: v[:, None] for key, v in items[0][3].items()}
+        else:
+            host = {key: np.stack([it[3][key] for it in items], axis=1)
+                    for key in items[0][3]}
+        batches = self._to_device(host)
+        k = next(iter(batches.values())).shape[0]
+        steps = [{key: v[i] for key, v in batches.items()} for i in range(k)]
+        seeds = [it[4] for it in items]
+        krows = [C.num_keep(self.dim, self.devices[it[1]].plan.delta)
+                 for it in items]
+        fn = self._bucket_fn(bkey, B)
+        with _prof.annotate("sim.bucket_dispatch"):
+            if bkey[3]:   # error feedback
+                rows = torch.as_tensor([self._rowof[it[1]] for it in items],
+                                       dtype=torch.long, device=self.device)
+                payload, new_rows, bits = fn(
+                    flat, self._res_stack.index_select(0, rows), steps,
+                    seeds, krows)
+                self._res_stack.index_copy_(0, rows, new_rows)
+            else:
+                payload, _, bits = fn(flat, None, steps, seeds, krows)
+        return bkey, items, payload, bits
+
+    def _collect_chunk(self, rec, results: dict) -> None:
+        """One device-to-host copy per chunk: the dense rows, or the
+        compact (values, indices) rows packed side by side as int32 bits."""
+        bkey, items, payload, bits = rec
+        if self._bucket_sparse(bkey):
+            vals, idxs = payload
+            kcap = vals.shape[1]
+            host = torch.cat([vals.view(torch.int32), idxs], dim=1).to(
+                "cpu").numpy()
+            vals, idxs = host[:, :kcap].view(np.float32), host[:, kcap:]
+            for i, it in enumerate(items):
+                did = it[1]
+                # kept-count header of the compact wire format; exact-k
+                # compressors know it statically, threshold selection only
+                # on device (header still charged via _wire_bits)
+                kept = (C.num_keep(self.dim, self.devices[did].plan.delta)
+                        if bkey[1] in ("topk", "randk") else None)
+                results[did] = (SparseUpdate(vals[i], idxs[i], self.dim,
+                                             kept),
+                                self._wire_bits(did, bits[i]))
+        else:
+            dense = payload.to("cpu").numpy()
+            for i, it in enumerate(items):
+                did = it[1]
+                results[did] = (dense[i], self._wire_bits(did, bits[i]))
+
     # -------------------------------------------------------------------- run
     def run(self, total_rounds: int = 50, eval_every: int = 1,
             max_sim_time: float = math.inf) -> History:
@@ -533,6 +878,52 @@ class AFLSimulator:
             self.events_processed += 1
 
             if kind == "start":
+                if self._batched:
+                    # Drain every start that must precede the earliest
+                    # possible completion of the drained set: no aggregation
+                    # (= model change) can land in between, so the whole
+                    # group reads the same global model. Each popped start
+                    # resolves its upload outcome here, at pop time: down
+                    # devices queue their recovery, lost uploads queue their
+                    # restart at once (re-entering the heap so the drain
+                    # sees them in exact sequential event order), and
+                    # delivered uploads bound the horizon with their TRUE
+                    # arrival time (retries included). A device appears only
+                    # once per drain: buffered strategies can release it
+                    # several times at one timestamp, and those cycles chain
+                    # through its EF residual.
+                    starts, seen, horizon = [], set(), math.inf
+                    while True:
+                        did, mr = payload
+                        if self.failure_schedule is not None and \
+                                self.failure_schedule.is_down(did, t):
+                            rec = self.failure_schedule.recovery_time(did, t)
+                            self._trace_down(did, t, rec)
+                            push(rec, "start", (did, self.model.round))
+                        else:
+                            self._maybe_replan(did, t)
+                            arrive, restart_at, attempts, corrupt, ch_del = \
+                                self._schedule_upload(did, t)
+                            if arrive is None:
+                                push(restart_at, "start",
+                                     (did, self.model.round))
+                            else:
+                                horizon = min(horizon, arrive)
+                            seen.add(did)
+                            starts.append(
+                                (t, did, mr, arrive, attempts, corrupt,
+                                 ch_del))
+                        if not (heap and heap[0][2] == "start"
+                                and heap[0][0] <= min(horizon, max_sim_time)
+                                and heap[0][3][0] not in seen):
+                            break
+                        t, _, _, payload = heapq.heappop(heap)
+                        last_t = t
+                        self.events_processed += 1
+                    if starts:
+                        with self._phase("heap_drain"):
+                            self._process_starts_batched(starts, push)
+                    continue
                 did, mr = payload
                 if self.failure_schedule is not None and \
                         self.failure_schedule.is_down(did, t):

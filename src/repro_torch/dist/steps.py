@@ -11,10 +11,14 @@ local-round and pod-round builders in `repro.dist.steps`).
 
 `lm` is anything with `.loss(params, batch)` over a nested dict of
 parameters. `local_round` is the one local-round loop of the port, shared
-with `AFLSimulator`: it runs on one flat fp32 leaf buffer whose views are
-the parameters, and each step is one `autograd.grad` for the flat
-gradient and one in-place `opt.update` on the buffer — one
-`fused_momentum` launch for `momentum_sgd`.
+with `AFLSimulator`'s sequential engine: it runs on one flat fp32 leaf
+buffer whose views are the parameters, and each step is one
+`autograd.grad` for the flat gradient and one in-place `opt.update` on
+the buffer — one `fused_momentum` launch for `momentum_sgd`.
+`batched_local_round` is its counterpart for a chunk of B devices (the
+simulator's batched engine): a stacked [B, d] buffer, `torch.func.vmap`
+gradients (`batched_grad`), and one `opt.update` over the whole [B·d]
+buffer per step.
 
 `make_train_step` and the prefill/decode builders wait for the
 datacenter/serving slice.
@@ -43,6 +47,54 @@ def local_round(loss_fn, opt, flat: torch.Tensor, spec, opt_state,
             losses.append(loss.detach())
         w_k = w.detach()
         return opt_state, w_k, flat.to(torch.float32) - w_k, losses
+
+
+def batched_grad(loss_fn, spec):
+    """grad(W [B, d], batch of [B, ...] tensors) -> [B, d]: every row's
+    gradient of `loss_fn` at its own parameters, by `vmap(grad(loss))`.
+
+    Under vmap a convolution whose weights differ per row becomes one
+    grouped convolution. On the H100, cuDNN's kernels for it take fp32
+    gradients about 2e-4 from float64 (median row of cnn_fmnist), where
+    its ungrouped kernels, which the sequential engine runs, and
+    PyTorch's own kernels stay near 4e-7 (`launch.grad_accuracy`). So
+    the gradients are taken with cuDNN off."""
+    g = torch.func.vmap(torch.func.grad(
+        lambda wr, b: loss_fn(C.unflatten_pytree(wr, spec), b)))
+
+    def grad(w: torch.Tensor, batch: dict) -> torch.Tensor:
+        with torch.backends.cudnn.flags(
+                enabled=False, benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=torch.backends.cudnn.allow_tf32):
+            return g(w, batch)
+
+    return grad
+
+
+def batched_local_round(loss_fn, opt, flat: torch.Tensor, spec, batches
+                        ) -> torch.Tensor:
+    """The local rounds of B devices from one global model at once: the
+    counterpart of the reference's vmapped local round.
+
+    `flat` is the [d] fp32 model (left untouched); `batches` holds one dict
+    of [B, batch, ...] tensors per step. Each step takes every row's
+    gradient with `vmap(grad(loss))` and applies `opt.update` ONCE over the
+    contiguous [B·d] views of the stacked parameters and their optimizer
+    state — one `fused_momentum` launch for `momentum_sgd`. The launch has
+    no batching rule, so it stays outside vmap; the update is elementwise,
+    so one launch serves every row. Returns g = W0 − Wk, [B, d] (Eq. 4),
+    equal row by row to `local_round`'s delta on the row's batches."""
+    with annotate("batched_local_round"):
+        w0 = flat.detach().to(torch.float32)
+        rows = next(iter(batches[0].values())).shape[0]
+        w = w0.repeat(rows, 1)          # a copy, also when rows == 1
+        state = opt.init(w.view(-1))
+        grad = batched_grad(loss_fn, spec)
+        for batch in batches:
+            _, state = opt.update(grad(w, batch).reshape(-1), state,
+                                  w.view(-1))
+        return w0 - w
 
 
 def _steps(batches: dict, k: int) -> list[dict]:

@@ -1,15 +1,19 @@
 """Training CLI (PyTorch port of `repro.launch.train`, `--mode fl`).
 
 Asynchronous federated training of one of the paper's tasks under any of
-the 5 methods, on the event-driven simulator (sequential engine) with real
-PyTorch compute on `--device` (default `cuda`; `cpu` for a smoke run on a
-machine without a card). Same flags and the same result-JSON keys as the
-reference. Checkpoints (`--ckpt-dir`/`--resume`) and `--mode datacenter`
-are not ported yet and raise.
+the 5 methods, on the event-driven simulator (its batched engine, as the
+reference CLI runs it) with real PyTorch compute on `--device` (default
+`cuda`; `cpu` for a smoke run on a machine without a card), with
+checkpoint/restart: `--ckpt-dir` saves the global model, its round and
+the per-device EF residuals after every `--ckpt-every` segment, in the
+reference's checkpoint layout, and `--resume` continues from the latest
+one (a checkpoint of either package). Same flags and the same result-JSON
+keys as the reference. `--mode datacenter` is not ported yet and raises.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --task cnn_fmnist \
-      --method fedluck --error-feedback --rounds 60
+      --method fedluck --error-feedback --rounds 60 --ckpt-dir /tmp/ck \
+      --resume
   PYTHONPATH=src python -m repro_torch.launch.train --task mlp_micro \
       --rounds 4 --devices 3 --samples 600 --device cpu
 """
@@ -18,6 +22,8 @@ from __future__ import annotations
 import argparse
 import json
 import time
+
+import numpy as np
 
 from repro_torch.obs import log
 
@@ -47,10 +53,36 @@ def export_obs(args, tracer, metrics, extra=None) -> None:
 
 
 # --------------------------------------------------------------------- FL mode
-def run_fl(args) -> dict:
+def fl_ckpt_state(sim) -> dict:
+    """FL checkpoint payload: global model + round + per-device EF
+    residuals (without the residuals, a resumed error-feedback run
+    re-drops every deferred coordinate and diverges from the
+    uninterrupted run). Residuals come via `residual_snapshot`, which
+    works for both engines."""
+    state = {"w": np.asarray(sim.model.w),
+             "round": np.asarray(sim.model.round)}
+    ids, stacked = sim.residual_snapshot()
+    if len(ids):
+        state["residual_ids"] = ids
+        state["residuals"] = stacked
+    return state
+
+
+def restore_fl_state(sim, state) -> None:
+    sim.model.w = np.asarray(state["w"])
+    sim.model.round = int(state["round"])
+    if "residuals" in state:
+        sim.load_residuals(np.asarray(state["residual_ids"]),
+                           np.asarray(state["residuals"]))
+
+
+def run_fl(args, *, engine: str = "batched") -> dict:
+    """The FL simulator run the CLI's flags describe, on `engine` (the
+    reference CLI's default, `batched`, or `sequential`)."""
     import torch
 
     from repro_torch import resolve_device
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core.aggregation import SanitizerConfig
     from repro_torch.core.simulator import (AFLSimulator, STRATEGY_FOR_METHOD,
                                             make_heterogeneous_devices,
@@ -59,10 +91,6 @@ def run_fl(args) -> dict:
     from repro_torch.ft import FailureSchedule, LossyChannel
     from repro_torch.models import small
 
-    if args.ckpt_dir or args.resume:
-        raise NotImplementedError(
-            "--ckpt-dir/--resume are not ported yet (ROADMAP.md, queue 1, "
-            "item 5: checkpoints)")
     device = resolve_device(args.device)
     task = small.make_task(args.task, num_samples=args.samples,
                            test_samples=args.test_samples,
@@ -102,10 +130,19 @@ def run_fl(args) -> dict:
                        eta_g=args.eta_g, seed=args.seed, client_indices=idx,
                        failure_schedule=failure, channel=channel,
                        sanitizer=sanitizer, tracer=tracer, metrics=metrics,
-                       engine="sequential", device=device)
+                       engine=engine,
+                       device=device)
 
-    # run in segments of --ckpt-every rounds, as the reference does (each
-    # segment restarts the simulated clock), so results stay comparable
+    mgr = CheckpointManager(args.ckpt_dir, max_to_keep=2) \
+        if args.ckpt_dir else None
+    if mgr and args.resume:
+        latest = mgr.latest_step()
+        if latest is not None:
+            restore_fl_state(sim, mgr.restore(latest))
+            log.status(f"[train] resumed from round {sim.model.round}")
+
+    # run in checkpointed segments so a crash loses at most one segment;
+    # each segment restarts the simulated clock, as in the reference
     seg = max(1, args.ckpt_every)
     hist_all = []
     t0 = time.perf_counter()
@@ -113,16 +150,21 @@ def run_fl(args) -> dict:
         target = min(args.rounds, sim.model.round + seg)
         hist = sim.run(total_rounds=target, eval_every=args.eval_every)
         hist_all.extend(hist.records)
+        if mgr:
+            mgr.save(sim.model.round, fl_ckpt_state(sim))
+            mgr.wait()
         r = hist.records[-1]
         log.status(f"[train] round={sim.model.round} acc={r.accuracy:.3f} "
                    f"sim_t={r.time:.1f}s comm={r.gbits:.3f}Gb "
                    f"wall={time.perf_counter()-t0:.0f}s")
     if not hist_all:
+        # resumed at/past the target round: nothing to train, just eval
         hist_all.extend(
             sim.run(total_rounds=sim.model.round, eval_every=1).records)
+    sim.close()
     final = hist_all[-1]
     export_obs(args, tracer, metrics,
-               extra={"engine": "sequential", "task": args.task,
+               extra={"engine": sim.engine, "task": args.task,
                       "method": args.method, "device": str(device)})
     return {"final_accuracy": final.accuracy, "rounds": sim.model.round,
             "gbits": final.gbits, "sim_time": final.time,
@@ -169,11 +211,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-every", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="",
-                    help="not ported yet: raises when set")
+                    help="save a checkpoint after every segment here")
     ap.add_argument("--ckpt-every", type=int, default=10,
                     help="rounds per sim.run segment")
     ap.add_argument("--resume", action="store_true",
-                    help="not ported yet: raises when set")
+                    help="continue from the latest checkpoint in --ckpt-dir")
     # observability (fl mode)
     ap.add_argument("--trace-out", default="",
                     help="write a Perfetto/Chrome trace JSON of the run")

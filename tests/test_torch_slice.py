@@ -122,17 +122,10 @@ def test_simulator_matches_reference(weights, compressor):
     assert jres.shape == tres.shape and np.abs(tres).sum() > 0
 
 
-def test_batched_engine_is_not_ported_yet(weights):
-    task = tsmall.make_task("mlp_micro", **TASK_KW)
-    spec = TS.DeviceSpec(TProfile(0, 0.1, 1.0), TPlan(2, 0.1, 0, 1, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.AFLSimulator(task, [spec], engine="batched", device="cpu")
-
-
 def test_run_fl_matches_reference(weights, monkeypatch, tmp_path):
-    """`run_fl` of both packages on the same flags (the reference runs its
-    default batched engine, which its tests hold bitwise equal to the
-    sequential one), with the port's task initialised from JAX weights."""
+    """`run_fl` of both packages on the same flags (both run their default
+    batched engine), with the port's task initialised from JAX
+    weights."""
     real = tsmall.make_task
 
     def make_task(*a, **kw):
