@@ -98,24 +98,58 @@ Phases (any failure exits non-zero and prints no result line):
 10. podparity  mlp_micro, 2 pods x 2 shards, blk 64, δ 0.05, on the card
             and on the CPU from the same weights and batches: per-pod
             losses within rtol 1e-3; the card's deltas synced on the CPU
-            give bitwise residuals and params within rtol 1e-5.
+            give bitwise residuals and params within rtol 1e-5;
+11. lm      the ten LM archs at their smoke configs, fp32, on the card and
+            on the CPU from the same weights: loss within rtol 1e-4, the
+            flat gradient within relative L2 1e-3, prefill and one-step
+            decode logits within atol 1e-3; after 16 decode steps the
+            compute cache's logits within atol 1e-3 and the int8 cache's
+            within 1e-2 of the CPU's, and the int8 cache tracking the
+            compute cache (corrcoef > 0.999, the same last greedy token
+            up to near-ties within 0.05: `int8_tracks`);
+12. serve   `launch.serve.serve()` on unreduced gemma3-4b (~3.9 B
+            parameters) and mamba2-780m, random init on the card, fp32,
+            4 requests at batch 2, prompt 16, gen 16 after a first call of
+            2 x 2 tokens: tokens/s, wall and peak memory; decode at
+            position 16 equals a prefill of 17 tokens (atol 2e-2);
+            gemma3-4b's int8 cache tracks the compute cache over 16
+            decode steps (`int8_tracks`);
+13. datacenter  `launch.train.run_datacenter` on the unreduced mamba2-780m
+            (2 pods, k 2, δ 0.01, 3 steps, batch 8): finite loss, comm_mb
+            equal to the top-k payload formula, fused_momentum launches ==
+            4 (the α probe) + 3 x 2 x 2; the wall per round split into local
+            rounds, compression and aggregation, and the peak memory; at
+            full width on the card and on the CPU, the gradients of the
+            loss with bf16 and with fp32 logits (loss within rtol 1e-4,
+            relative L2 1e-3) and the first local round's delta at η_l
+            0.05 and 0.005 (printed); the run at η_l 0.005 with a fixed
+            batch's loss falling over its 3 rounds; then
+            the smoke config on the card and on the CPU from the same
+            weights: identical comm_mb, loss within rtol 1e-3.
+Each of phases 11-13 prints its seconds beside the card's name and power
+limit.
 
 Kernel launch counts are set to 0 just before each main-path run and read
 just after it; launches made to compare a kernel with its plain version
 do not count. The `kernels` line reports fused_momentum's launches from
 `cli`, ef_topk's and magnitude_hist's from `batched`'s topk_threshold run
-(the CLI's engine) and compact_blocks' from `pod`. The line before the
-last is {"kernels": [...]}, the last line {"ok": true, "device": {...}}.
+(the CLI's engine) and compact_blocks' from `pod`; fused_momentum's
+launches on the datacenter path are printed on a line of their own. The
+line before the last is {"kernels": [...]}, the last line {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # fp32 outside the tensor cores
@@ -1024,14 +1058,427 @@ def phase_podparity(torch, dev: str = "cuda") -> None:
         f"rtol 1e-5")
 
 
+
+# ------------------------------------------------------------ the LM family
+LM_ARCHS = ("gemma3-4b", "starcoder2-15b", "gemma3-27b", "stablelm-3b",
+            "grok-1-314b", "qwen3-moe-30b-a3b", "hymba-1.5b", "hubert-xlarge",
+            "mamba2-780m", "paligemma-3b")
+SERVE_ARCHS = ("gemma3-4b", "mamba2-780m")   # unreduced in `serve`
+
+
+def card(dev: str) -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    if dev != "cuda":
+        return "cpu"
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+
+
+def _peak_gib(torch, dev: str) -> str:
+    if dev != "cuda":
+        return "not measured (cpu)"
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+
+
+def _reset_peak(torch, dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _lm_batch(torch, cfg, B: int, S: int, seed: int) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    tok = lambda n: torch.randint(0, cfg.vocab, (B, n), generator=g)
+    if cfg.frontend == "frames":
+        return {"frames": torch.randn(B, S, cfg.frame_dim, generator=g),
+                "labels": tok(S)}
+    if cfg.frontend == "patches":
+        return {"patches": torch.randn(B, cfg.n_patches, cfg.patch_dim,
+                                       generator=g),
+                "tokens": tok(S - cfg.n_patches),
+                "labels": tok(S - cfg.n_patches)}
+    return {"tokens": tok(S), "labels": tok(S)}
+
+
+NEAR_TIE = 0.05     # logits: about the int8 cache's error at these sizes
+INT8_ATOL = 1e-2    # int8 logits card vs CPU: a q or p code may round apart
+
+
+def int8_tracks(torch, a, b) -> tuple[bool, str]:
+    """Whether the int8 cache's logits `b` track the compute cache's `a`
+    ([B, ..., V], the last position read): corrcoef > 0.999, and in every
+    row the int8 greedy token is the compute cache's, or one whose compute
+    logit is within NEAR_TIE of the row's best (a near-tie that the int8
+    rounding may decide either way). The bound is fixed: it does not grow
+    with the int8 logits' own error."""
+    corr = float(torch.corrcoef(torch.stack([a.reshape(-1),
+                                             b.reshape(-1)]))[0, 1])
+    ok, parts = corr > 0.999, [f"corrcoef {corr:.7f}"]
+    for ra, rb in zip(a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])):
+        ia, ib = int(ra.argmax()), int(rb.argmax())
+        short = float(ra[ia] - ra[ib])
+        ok &= short <= NEAR_TIE
+        parts.append(f"greedy compute/int8 {ia}/{ib} (compute logit "
+                     f"{short:.4f} below the best)")
+    return ok, "; ".join(parts)
+
+
+def _lm_outputs(torch, lm, flat, spec, dev: str) -> dict:
+    """Loss, flat gradient, prefill and one-step decode logits, and the
+    last logits of 16 decode steps from an empty compute and int8 cache,
+    of `lm` at the parameters `flat` moved to `dev`."""
+    import dataclasses
+    from repro_torch.core import compression as C
+    from repro_torch.launch.serve import grow_cache
+    cfg = lm.cfg
+    w = flat.to(dev).clone().requires_grad_(True)
+    batch = {k: v.to(dev) for k, v in _lm_batch(torch, cfg, 2, 64,
+                                                 0).items()}
+    loss = lm.loss(C.unflatten_pytree(w, spec), batch)
+    (grad,) = torch.autograd.grad(loss, w)
+    out = {"loss": float(loss.detach()), "grad": grad.cpu()}
+    if cfg.frontend == "frames":
+        return out
+    params = C.unflatten_pytree(w.detach(), spec)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.no_grad():
+        pl, cache = lm.prefill(params, inputs)
+        pos = cfg.n_patches + inputs["tokens"].shape[1] \
+            if cfg.frontend == "patches" else inputs["tokens"].shape[1]
+        nxt = inputs["tokens"][:, :1]
+        dl, _ = lm.decode_step(params, grow_cache(cache, pos + 1), nxt, pos)
+        out.update(prefill=pl.cpu(), decode=dl.cpu())
+        tok = batch["labels"][:, :16]
+        for kv in ("compute", "int8"):
+            m = dataclasses.replace(lm, kv_dtype=kv)
+            c = m.init_cache(2, 16, device=dev)
+            for t in range(16):
+                logits, c = m.decode_step(params, c, tok[:, t:t + 1], t)
+            out[kv] = logits[:, -1].cpu()
+    return out
+
+
+def phase_lm(torch, dev: str = "cuda") -> None:
+    """All ten archs at their smoke configs, fp32 (TF32 off), on the card
+    and on the CPU from the same weights: loss within rtol 1e-4, the flat
+    gradient within relative L2 1e-3, prefill and decode logits within
+    atol 1e-3; after 16 decode steps from an empty cache, the compute
+    cache's last logits within atol 1e-3 and the int8 cache's within
+    INT8_ATOL of the CPU's (whose int8 decode the CPU tests hold to the
+    reference), and on the card the int8 cache tracking the compute cache
+    (`int8_tracks`: corrcoef > 0.999, the same last greedy token up to
+    near-ties within NEAR_TIE)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import compression as C
+    from repro_torch.models.transformer import LM
+    t0 = time.perf_counter()
+    for arch in LM_ARCHS:
+        lm = LM(get_config(arch).smoke(), dtype=torch.float32, remat=False)
+        flat, spec = C.flatten_pytree(
+            lm.init(torch.Generator().manual_seed(0)))
+        a = _lm_outputs(torch, lm, flat, spec, dev)
+        b = _lm_outputs(torch, lm, flat, spec, "cpu")
+        rel = float((a["grad"] - b["grad"]).norm() / b["grad"].norm())
+        msg = (f"[lm] {arch}: loss {a['loss']:.7f} card vs {b['loss']:.7f} "
+               f"CPU, gradient relative L2 {rel:.3e}")
+        if abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]) or rel > 1e-3:
+            fail(msg)
+        if "prefill" in a:
+            errs = {k: float((a[k] - b[k]).abs().max())
+                    for k in ("prefill", "decode", "compute", "int8")}
+            tracks, how = int8_tracks(torch, a["compute"], a["int8"])
+            msg += (f", max abs logits error prefill {errs['prefill']:.3e} "
+                    f"decode {errs['decode']:.3e}; after 16 decode steps "
+                    f"compute cache {errs['compute']:.3e}, int8 cache "
+                    f"{errs['int8']:.3e}; int8 vs compute on the card {how}")
+            if max(errs["prefill"], errs["decode"], errs["compute"]) > 1e-3 \
+                    or errs["int8"] > INT8_ATOL or not tracks:
+                fail(msg)
+        log(msg)
+    log(f"[lm] ten archs held card vs CPU in "
+        f"{time.perf_counter() - t0:.1f}s on {card(dev)}")
+
+
+def phase_serve(torch, dev: str = "cuda", configs=None) -> None:
+    """`launch.serve.serve()` on unreduced gemma3-4b (34 layers, d_model
+    2560, vocab 262144, ~3.9 B parameters) and mamba2-780m (48 layers,
+    d_model 1536), randomly initialised on the card, fp32: 4 requests at
+    batch 2, prompt 16, gen 16, with tokens/s, wall and peak memory.
+    Gates: decode logits at position P equal a prefill of P + 1 tokens
+    (atol 2e-2); for the attention arch, 16 decode steps with an int8 KV
+    cache track the compute cache (`int8_tracks`: corrcoef > 0.999, the
+    same last greedy token up to near-ties within NEAR_TIE)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import grow_cache, serve
+    from repro_torch.models.transformer import LM
+    configs = configs or [get_config(a) for a in SERVE_ARCHS]
+    for cfg in configs:
+        t0 = time.perf_counter()
+        _reset_peak(torch, dev)
+        lm = LM(cfg, dtype=torch.float32, remat=False)
+        params = lm.init(torch.Generator(device=dev).manual_seed(0), dev)
+        _sync(torch, dev)
+        t_init = time.perf_counter() - t0
+        # the first call pays one-time costs (library and kernel loading)
+        first = serve(lm, params, requests=2, batch=2, prompt_len=16, gen=2,
+                      seed=0)
+        res = serve(lm, params, requests=4, batch=2, prompt_len=16, gen=16,
+                    seed=0)
+        peak = _peak_gib(torch, dev)
+        log(f"[serve] {cfg.name} ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab}): {res['tokens_per_s']:.3f} "
+            f"tokens/s, wall {res['wall_s']:.6f}s for 4 requests x 16 "
+            f"tokens after a first call of 2 x 2 tokens "
+            f"({first['wall_s']:.6f}s; init {t_init:.1f}s), peak memory "
+            f"{peak}, sample {res['served'][0][:8]} on {card(dev)}")
+        g = torch.Generator().manual_seed(1)
+        tok = torch.randint(0, cfg.vocab, (2, 17), generator=g).to(dev)
+        with torch.no_grad():
+            _, cache = lm.prefill(params, {"tokens": tok[:, :16]})
+            dl, _ = lm.decode_step(params, grow_cache(cache, 17),
+                                   tok[:, 16:], 16)
+            fl, _ = lm.prefill(params, {"tokens": tok})
+        err = float((dl - fl).abs().max())
+        msg = (f"[serve] {cfg.name}: decode at position 16 vs a prefill of "
+               f"17 tokens, max abs logits error {err:.3e}")
+        if err > 2e-2 or not bool(torch.isfinite(dl).all()):
+            fail(msg)
+        if cfg.has_attention:
+            last = {}
+            with torch.no_grad():
+                for kv in ("compute", "int8"):
+                    m = dataclasses.replace(lm, kv_dtype=kv)
+                    c = m.init_cache(2, 16, device=dev)
+                    for t in range(16):
+                        logits, c = m.decode_step(params, c,
+                                                  tok[:, t:t + 1], t)
+                    last[kv] = logits.cpu()
+            tracks, how = int8_tracks(torch, last["compute"], last["int8"])
+            msg += f"; 16 int8-cache decode steps vs the compute cache: {how}"
+            if not tracks:
+                fail(msg)
+        log(msg + f" ({time.perf_counter() - t0:.1f}s)")
+        del params
+        _reset_peak(torch, dev)
+
+
+def _dc_args(extra: list):
+    from repro_torch.launch import train
+    return train.build_parser().parse_args(
+        ["--mode", "datacenter", "--pods", "2", "--local-k", "2",
+         "--steps", "3", "--quiet"] + extra)
+
+
+class _CpuDrawnInit:
+    """`LM.init` drawn on the CPU from the generator's seed and moved to
+    the device, so that a run on the card and a run on the CPU start from
+    the same weights."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import compression as C
+        from repro_torch.models.transformer import LM
+        self._real = real = LM.init
+
+        def init(lm, gen, device=None):
+            cpu_gen = torch.Generator().manual_seed(gen.initial_seed())
+            flat, spec = C.flatten_pytree(real(lm, cpu_gen))
+            return C.unflatten_pytree(flat.to(device), spec)
+        LM.init = init
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.transformer import LM
+        LM.init = self._real
+
+
+def _dc_full_width_witness(torch, dev: str, cfg, k: int, loss: float,
+                           flags: list) -> None:
+    """Witnesses for the datacenter run at full width, where its loss
+    grows at the CLI's η_l 0.05. (1) From the same weights and batches
+    (batch 8, sequences of 64) on the card and on the CPU: the gradient
+    of `LM.loss` (bf16 logits, as the reference) and of the same loss
+    with fp32 logits, each within rtol 1e-4 in loss and relative L2 1e-3
+    (the `lm` phase's gates), beside how far the card's own gradient
+    moves under a rounding-size change of the weights; then the first
+    local round (k steps of
+    momentum SGD) at η_l 0.05 and 0.005, whose deltas w0 − wk are printed
+    card vs CPU (a step too large for the curvature amplifies the first
+    gradient's rounding). (2) The run at η_l 0.005: the loss of one fixed
+    batch lower after its 3 rounds than at the initial weights."""
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import compression as C
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.dist.steps import make_local_round_step
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import LM, _ce
+    from repro_torch.optim import momentum_sgd
+    t0 = time.perf_counter()
+    eta = _dc_args([]).eta_l
+    lm = LM(cfg, dtype=torch.float32, remat=False)
+
+    def head32(params, batch):        # LM.loss with fp32 logits
+        x, pos, prefix = lm._embed_inputs(params, batch)
+        h, _ = lm._stack(params, x, positions=pos, prefix_len=prefix)
+        return _ce(h @ params["embed"]["embedding"].T, batch["labels"])
+
+    flat, spec = C.flatten_pytree(lm.init(torch.Generator().manual_seed(0)))
+    steps = [_lm_batch(torch, cfg, 8, 64, 10 + i) for i in range(k)]
+    batches = {key: torch.stack([b[key] for b in steps]) for key in steps[0]}
+    # the weights scaled by 1 + 1e-7·N(0, 1), the size of fp32 rounding
+    nudged = flat * (1 + 1e-7 * torch.randn(
+        flat.shape, generator=torch.Generator().manual_seed(3)))
+    for name, fn in (("LM.loss", lm.loss), ("fp32-logit loss", head32)):
+        out = {}
+        for where, w0 in ((dev, flat), ("cpu", flat), ("nudged", nudged)):
+            at = dev if where == "nudged" else where
+            w = w0.to(at, copy=True).requires_grad_(True)
+            val = fn(C.unflatten_pytree(w, spec),
+                     {key: v.to(at) for key, v in steps[0].items()})
+            out[where] = (float(val.detach()),
+                          torch.autograd.grad(val, w)[0].cpu())
+            del w, val
+        (lc, gc), (lh, gh) = out[dev], out["cpu"]
+        rel = float((gc - gh).norm() / gh.norm())
+        own = float((out["nudged"][1] - gc).norm() / gc.norm())
+        msg = (f"[datacenter] {cfg.name} gradient of {name} at the initial "
+               f"weights, card vs CPU: loss {lc:.7f} vs {lh:.7f}, "
+               f"relative L2 {rel:.3e} (norm {float(gh.norm()):.6f}); the "
+               f"card's own gradient moves by {own:.3e} when the weights "
+               f"are scaled by 1 + 1e-7·N(0, 1)")
+        if abs(lc - lh) > 1e-4 * abs(lh) or not rel <= 1e-3:
+            fail(msg)
+        log(msg)
+        del out, gc, gh
+    del nudged
+    for rate in (eta, 0.005):
+        opt = momentum_sgd(rate, momentum=0.9)
+        out = {}
+        for where in (dev, "cpu"):
+            params = C.unflatten_pytree(flat.to(where), spec)
+            _, _, delta, loss1 = make_local_round_step(lm, opt, k)(
+                params, opt.init(params),
+                {key: v.to(where) for key, v in batches.items()})
+            out[where] = (float(loss1), C.flatten_pytree(delta)[0].cpu())
+            del params, delta
+        (lc, dc), (lh, dh) = out[dev], out["cpu"]
+        rel = float((dc - dh).norm() / dh.norm())
+        msg = (f"[datacenter] {cfg.name} first local round (k {k}, η_l "
+               f"{rate}) card vs CPU: loss {lc:.7f} vs {lh:.7f}, delta norm "
+               f"{float(dc.norm()):.6f} vs {float(dh.norm()):.6f}, relative "
+               f"L2 {rel:.3e}")
+        if not (math.isfinite(lc) and bool(torch.isfinite(dc).all())):
+            fail(msg)
+        log(msg)
+        del out, dc, dh
+    del flat
+    _reset_peak(torch, dev)
+    # (2) at η_l 0.005: the loss of one fixed batch (32 sequences of the
+    # run's data) at the initial weights and at the run's last checkpoint
+    ckdir = os.path.join(HERE, "build", "dc_witness")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    low = train.run_datacenter(_dc_args(flags + [
+        "--eta-l", "0.005", "--device", dev, "--ckpt-dir", ckdir,
+        "--ckpt-every", "3"]), cfg=cfg)
+    w3 = CheckpointManager(ckdir).restore(3)["w"]
+    shutil.rmtree(ckdir)
+    ds = SyntheticTokens(vocab=cfg.vocab, seq_len=65, num_samples=2048)
+    fixed = {key: torch.from_numpy(v).long().to(dev)
+             for key, v in ds.batch(np.arange(32)).items()}
+    with torch.no_grad():
+        p0 = lm.init(torch.Generator(device=dev).manual_seed(0), dev)
+        _, spec = C.flatten_pytree(p0)
+        l0 = float(lm.loss(p0, fixed))
+        del p0
+        l3 = float(lm.loss(C.unflatten_pytree(
+            torch.from_numpy(w3).to(dev), spec), fixed))
+    msg = (f"[datacenter] {cfg.name} at η_l 0.005, 3 rounds: loss of a "
+           f"fixed batch {l0:.6f} at the initial weights, {l3:.6f} after "
+           f"round 2; the run's round-2 loss {low['loss']:.6f} (at η_l "
+           f"{eta}: {loss:.6f}) ({time.perf_counter() - t0:.1f}s on "
+           f"{card(dev)})")
+    if not l3 < l0:
+        fail(msg)
+    log(msg)
+    _reset_peak(torch, dev)
+
+
+def phase_datacenter(torch, dev: str = "cuda", cfg=None) -> int:
+    """`launch.train.run_datacenter` on the unreduced mamba2-780m (48
+    layers, d_model 1536, ~0.78 B parameters), 2 pods, --local-k 2
+    --rate 0.01 --steps 3, and --batch-size 8 in place of the CLI's 32 (a
+    short run that still moves every pod). Gates: finite loss; comm_mb
+    equal to steps x pods x the payload bits of a top-k keeping
+    round(0.01·d) coordinates (values and int32 indices, 64 bits each,
+    rounded to fp32 as the reference does, plus the 32-bit count header);
+    fused_momentum launches == the α probe's 4 steps + steps x pods x k.
+    Prints the wall per round split into local rounds, compression and
+    aggregation, and the peak memory. Then `_dc_full_width_witness`, and
+    the smoke config on the card and on the CPU from the same weights:
+    identical comm_mb, loss within rtol 1e-3. Returns the run's
+    fused_momentum launches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import compression as C
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import LM
+    from repro_torch.obs.profiling import PhaseTimers
+    cfg = cfg or get_config("mamba2-780m")
+    steps, pods, k, rate = 3, 2, 2, 0.01
+    d = sum(int(np.prod(s)) for _, s in LM(cfg).param_spec())
+    kept = C.num_keep(d, rate)
+    want_mb = steps * pods * (float(np.float32(kept * 64)) + 32) / 8e6
+    timers = PhaseTimers()
+    _reset_peak(torch, dev)
+    t0 = time.perf_counter()
+    reset_counts()
+    res = train.run_datacenter(
+        _dc_args(["--rate", str(rate), "--batch-size", "8", "--device",
+                  dev]), cfg=cfg, timers=timers)
+    _sync(torch, dev)
+    c = counts()
+    wall = time.perf_counter() - t0
+    split = {name: timers.totals[name] / steps
+             for name in ("local", "compress", "aggregate")}
+    log(f"[datacenter] {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, d = {d}): {json.dumps(res)}; per round "
+        f"{sum(split.values()):.6f}s (local rounds {split['local']:.6f}s, "
+        f"compression {split['compress']:.6f}s, aggregation "
+        f"{split['aggregate']:.6f}s), whole run with the α probe "
+        f"{wall:.3f}s, peak memory {_peak_gib(torch, dev)}, launches {c} "
+        f"on {card(dev)}")
+    want_fm = 4 + steps * pods * k
+    if not math.isfinite(res["loss"]) or res["comm_mb"] != want_mb:
+        fail(f"datacenter: {res}, expected comm_mb {want_mb} (k {kept})")
+    if dev == "cuda" and c["fused_momentum"] != want_fm:
+        fail(f"datacenter: fused_momentum launched {c['fused_momentum']} "
+             f"times, expected {want_fm}")
+    fm = c["fused_momentum"]
+    _reset_peak(torch, dev)
+    _dc_full_width_witness(torch, dev, cfg, k, res["loss"],
+                           ["--rate", str(rate), "--batch-size", "8"])
+
+    smoke = ["--arch", "mamba2-780m", "--rate", "0.05"]
+    with _CpuDrawnInit():
+        on_card = train.run_datacenter(_dc_args(smoke + ["--device", dev]))
+        on_cpu = train.run_datacenter(_dc_args(smoke + ["--device", "cpu"]))
+    log(f"[datacenter] smoke parity: card {on_card} vs CPU {on_cpu}")
+    if on_card["comm_mb"] != on_cpu["comm_mb"] or \
+            abs(on_card["loss"] - on_cpu["loss"]) > 1e-3 * abs(on_cpu["loss"]):
+        fail(f"datacenter parity: card {on_card} vs CPU {on_cpu}")
+    return fm
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(here, "src"))
+    sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.kernels.checks import CheckFailed
 
@@ -1046,8 +1493,13 @@ def main() -> int:
         phase_parity(torch)
         pod = phase_pod(torch)
         phase_podparity(torch)
+        phase_lm(torch)
+        phase_serve(torch)
+        dc_fm = phase_datacenter(torch)
     except CheckFailed as e:
         fail(str(e))
+    log(f"[datacenter] fused_momentum launches on the datacenter path: "
+        f"{dc_fm}")
     launches = {"fused_momentum": fm, "ef_topk": bt["ef_topk"],
                 "magnitude_hist": bt["magnitude_hist"],
                 "compact_blocks": pod["compact_blocks"]}

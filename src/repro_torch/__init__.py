@@ -1,10 +1,11 @@
 """FedLuck in PyTorch: the port of `repro` to CUDA on an NVIDIA H100.
 
-Same sub-packages as `repro` (core, data, ft, obs, kernels, models,
-launch). Parameters live as views of one flat fp32 buffer in JAX
-dict-flatten order, so payload indices mean the same coordinates as in
-the reference. Entry points run on `cuda` unless the caller passes
-`device="cpu"`; asking for `cuda` without a card raises.
+Same sub-packages as `repro` (configs, core, data, dist, ft, obs,
+kernels, models, optim, checkpoint, launch). Parameters live as views of
+one flat fp32 buffer in JAX dict-flatten order, so payload indices mean
+the same coordinates as in the reference. Entry points run on `cuda`
+unless the caller passes `device="cpu"`; asking for `cuda` without a card
+raises.
 
 Importing the package turns TF32 off for cuDNN convolutions and CUDA
 matrix products: the reference computes in full fp32, and cuDNN would

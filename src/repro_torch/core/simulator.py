@@ -386,7 +386,7 @@ class AFLSimulator:
 
     def _compressor_fn(self, spec_d: DeviceSpec) -> C.Compressor:
         key = (spec_d.compressor, float(spec_d.plan.delta),
-               spec_d._ckw_key())
+               spec_d.error_feedback, spec_d._ckw_key())
         comp = self._compress_fns.get(key)
         if comp is None:
             if self._metrics is not None:

@@ -20,8 +20,9 @@ simulator's batched engine): a stacked [B, d] buffer, `torch.func.vmap`
 gradients (`batched_grad`), and one `opt.update` over the whole [B·d]
 buffer per step.
 
-`make_train_step` and the prefill/decode builders wait for the
-datacenter/serving slice.
+`make_train_step` and the prefill/decode builders are not ported: the
+reference calls them only from its multi-device dry run; on one card
+`LM.loss`, `LM.prefill` and `LM.decode_step` are called directly.
 """
 from __future__ import annotations
 
@@ -41,8 +42,15 @@ def local_round(loss_fn, opt, flat: torch.Tensor, spec, opt_state,
         w = flat.detach().to(torch.float32).clone().requires_grad_(True)
         losses = []
         for batch in batches:
-            loss = loss_fn(C.unflatten_pytree(w, spec), batch)
-            (grad,) = torch.autograd.grad(loss, w)
+            tree = C.unflatten_pytree(w, spec)
+            leaves = [leaf for _, leaf in C._leaves(tree)]
+            loss = loss_fn(tree, batch)
+            # the gradient of each leaf view, concatenated in flat order:
+            # through the views to `w`, autograd would zero-fill a [d]
+            # gradient per leaf and sum them
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+            grad = torch.cat([g.reshape(-1) for g in grads])
             _, opt_state = opt.update(grad, opt_state, w.detach())
             losses.append(loss.detach())
         w_k = w.detach()

@@ -1,14 +1,25 @@
-"""Training CLI (PyTorch port of `repro.launch.train`, `--mode fl`).
+"""Training CLI (PyTorch port of `repro.launch.train`).
 
-Asynchronous federated training of one of the paper's tasks under any of
-the 5 methods, on the event-driven simulator (its batched engine, as the
-reference CLI runs it) with real PyTorch compute on `--device` (default
-`cuda`; `cpu` for a smoke run on a machine without a card), with
-checkpoint/restart: `--ckpt-dir` saves the global model, its round and
-the per-device EF residuals after every `--ckpt-every` segment, in the
-reference's checkpoint layout, and `--resume` continues from the latest
-one (a checkpoint of either package). Same flags and the same result-JSON
-keys as the reference. `--mode datacenter` is not ported yet and raises.
+Two modes, with real PyTorch compute on `--device` (default `cuda`; `cpu`
+for a run on a machine without a card):
+
+1. `--mode fl` (default — the paper's setting): asynchronous federated
+   training of one of the paper's tasks under any of the 5 methods, on
+   the event-driven simulator (its batched engine, as the reference CLI
+   runs it), with checkpoint/restart: `--ckpt-dir` saves the global
+   model, its round and the per-device EF residuals after every
+   `--ckpt-every` segment, in the reference's checkpoint layout, and
+   `--resume` continues from the latest one (a checkpoint of either
+   package).
+
+2. `--mode datacenter`: DiLoCo-style multi-"pod" local SGD on an assigned
+   architecture's smoke config: each pod runs k local momentum-SGD steps
+   (one `fused_momentum` launch per step on the flat parameter buffer),
+   compresses its pseudo-gradient with EF top-k at the controller-chosen
+   δ, and the pods' payloads are averaged (Eq. 6). Every pod runs on the
+   one device.
+
+Same flags and the same result-JSON keys as the reference.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --task cnn_fmnist \
@@ -16,10 +27,14 @@ Examples:
       --resume
   PYTHONPATH=src python -m repro_torch.launch.train --task mlp_micro \
       --rounds 4 --devices 3 --samples 600 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --mode datacenter \
+      --arch mamba2-780m --steps 4 --pods 2 --local-k 2 --rate 0.05 \
+      --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -171,6 +186,131 @@ def run_fl(args, *, engine: str = "batched") -> dict:
             "fault_counters": sim.fault_counters()}
 
 
+# ------------------------------------------------------------- datacenter mode
+def run_datacenter(args, cfg=None, timers=None) -> dict:
+    """The datacenter run the CLI's flags describe, on `cfg` (default: the
+    smoke config of `--arch`, as the reference runs it). With `timers`
+    (an `obs.PhaseTimers`), each round's local rounds, compression and
+    aggregation are timed into phases "local", "compress" and
+    "aggregate", each ended by a device synchronisation."""
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import compression as C
+    from repro_torch.core.controller import DeviceProfile, FedLuckController
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.dist.steps import make_local_round_step
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import momentum_sgd
+
+    device = resolve_device(args.device)
+    cfg = cfg or get_config(args.arch).smoke()
+    if cfg.frontend != "tokens":
+        raise SystemExit("datacenter demo supports token LMs")
+    lm = LM(cfg, dtype=torch.float32, remat=False)
+    opt = momentum_sgd(args.eta_l, momentum=0.9)
+    n_pods = args.pods
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def phase(name):
+        if timers is None:
+            return contextlib.nullcontext()
+        return _synced_phase(timers, name, sync)
+
+    # ---- controller picks (k, δ) per pod from measured α and link β
+    ctl = FedLuckController(round_period=args.round_period,
+                            k_bounds=(1, args.local_k_max),
+                            delta_bounds=(1e-3, 1.0))
+    # every pod starts from the same parameters; local rounds never write
+    # them (`local_round` works on a copy)
+    params = lm.init(torch.Generator(device=device).manual_seed(args.seed),
+                     device)
+    flat_w, spec = C.flatten_pytree(params)
+    params = C.unflatten_pytree(flat_w, spec)
+    dim = int(flat_w.numel())
+    opt_states = [opt.init(params) for _ in range(n_pods)]
+    residuals = [torch.zeros(dim, device=device) for _ in range(n_pods)]
+    ds = SyntheticTokens(vocab=cfg.vocab, seq_len=65, num_samples=2048)
+
+    def batches_for(k, rng):
+        idx = rng.randint(0, len(ds), size=(k, args.batch_size))
+        bs = [ds.batch(i) for i in idx]
+        return {kk: torch.from_numpy(np.stack([b[kk] for b in bs]))
+                .long().to(device) for kk in bs[0]}
+
+    # measure α on pod 0's parameters with a fresh optimizer state (the
+    # update is in place, so the pods' own states stay untouched), derive
+    # β from a nominal 100 Gb/s DCN link
+    rng = np.random.RandomState(args.seed)
+    probe = make_local_round_step(lm, opt, 2)
+    probe(params, opt.init(params), batches_for(2, rng))
+    batches = batches_for(2, rng)
+    sync()
+    t1 = time.perf_counter()
+    probe(params, opt.init(params), batches)
+    sync()
+    alpha = (time.perf_counter() - t1) / 2
+    beta = dim * 32 / args.dcn_bps
+    plans = [ctl.register(DeviceProfile(i, alpha * (1 + 0.5 * i), beta))
+             for i in range(n_pods)]
+    log.status("[datacenter] plans:")
+    log.status(ctl.summary())
+
+    mgr = CheckpointManager(args.ckpt_dir, max_to_keep=2) \
+        if args.ckpt_dir else None
+
+    local_round = {}
+    comm_bits = 0.0
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        agg, losses = None, []
+        for i in range(n_pods):
+            k = plans[i].k if not args.local_k else args.local_k
+            if k not in local_round:
+                local_round[k] = make_local_round_step(lm, opt, k)
+            with phase("local"):
+                # the pod's own w_k is not kept: the round's delta is
+                opt_states[i], delta, loss = local_round[k](
+                    params, opt_states[i], batches_for(k, rng))[1:]
+                losses.append(float(loss))
+            with phase("compress"):
+                flat_d, _ = C.flatten_pytree(delta)
+                rate = plans[i].delta if not args.rate else args.rate
+                comp, residuals[i] = C.ef_compress(
+                    C.make_compressor("topk", rate), flat_d, residuals[i])
+                # payload-shape accounting: value/index bits + kept-count
+                # header, matching the compact pod-sync wire format
+                comm_bits += float(C.payload_bits(comp))
+                dense = comp.dense()
+                # running sum in pod order: numpy's mean over axis 0
+                agg = dense if agg is None else agg.add_(dense)
+        # Eq. 6 aggregation (the sparse all-reduce in the real deployment)
+        with phase("aggregate"):
+            flat_w = flat_w - args.eta_g * (agg / n_pods)
+            params = C.unflatten_pytree(flat_w, spec)
+        if mgr and (step + 1) % args.ckpt_every == 0:
+            mgr.save(step + 1, {"w": flat_w})
+            mgr.wait()
+        if step % 5 == 0 or step == args.steps - 1:
+            log.status(f"[datacenter] round={step} "
+                       f"loss={np.mean(losses):.4f} "
+                       f"comm={comm_bits/8e6:.1f}MB "
+                       f"wall={time.perf_counter()-t0:.0f}s")
+    return {"loss": float(np.mean(losses)), "comm_mb": comm_bits / 8e6}
+
+
+@contextlib.contextmanager
+def _synced_phase(timers, name, sync):
+    with timers.phase(name):
+        yield
+        sync()
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="fl", choices=["fl", "datacenter"])
@@ -216,6 +356,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="rounds per sim.run segment")
     ap.add_argument("--resume", action="store_true",
                     help="continue from the latest checkpoint in --ckpt-dir")
+    # datacenter
+    ap.add_argument("--arch", default="mamba2-780m")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--pods", type=int, default=2)
+    ap.add_argument("--local-k", type=int, default=0)
+    ap.add_argument("--local-k-max", type=int, default=10)
+    ap.add_argument("--rate", type=float, default=0.0)
+    ap.add_argument("--dcn-bps", type=float, default=100e9)
     # observability (fl mode)
     ap.add_argument("--trace-out", default="",
                     help="write a Perfetto/Chrome trace JSON of the run")
@@ -230,11 +378,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     log.set_quiet(args.quiet)
-    if args.mode != "fl":
-        raise NotImplementedError(
-            "--mode datacenter is not ported yet (ROADMAP.md, queue 1, "
-            "item 9: datacenter mode and serving)")
-    print(json.dumps(run_fl(args), indent=1))
+    res = run_fl(args) if args.mode == "fl" else run_datacenter(args)
+    print(json.dumps(res, indent=1))
 
 
 if __name__ == "__main__":

@@ -1,1 +1,3 @@
-"""Paper models (PyTorch port of `repro.models.nn` / `repro.models.small`)."""
+"""Models (PyTorch port of `repro.models`): the paper's models (`nn`,
+`small`) and the large-architecture LM family (`attention`, `mamba2`,
+`moe`, `transformer`)."""

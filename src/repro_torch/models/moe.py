@@ -1,0 +1,126 @@
+"""Mixture-of-Experts layer: top-k router + capacity-buffer grouped GEMM
+(PyTorch port of `repro.models.moe`, its unsharded path).
+
+Dispatch is the sort → position-in-group → scatter-to-[E, C, d] formulation:
+the grouped matmuls are plain einsums over the expert axis and the FLOPs
+are active-only (E·C·d_ff with C ≈ top_k·T/E·capacity_factor) — no
+[T, E, C] one-hot tensor and no dense all-experts compute. Over-capacity
+tokens are dropped (Switch-style).
+
+Which slots drop depends on the order of the sort, so the port sorts as
+the reference does: top-k and the slot sort are stable (ties keep the
+lower index first, as `jax.lax.top_k` and `jnp.argsort`).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import nn
+
+
+def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
+             *, device=None) -> dict:
+    init = nn.trunc_normal(1.0 / math.sqrt(d_model))
+    return {
+        "router": nn.linear_init(gen, d_model, n_experts, use_bias=False,
+                                 device=device),
+        "w_gate": init(gen, (n_experts, d_model, d_ff), device),
+        "w_up": init(gen, (n_experts, d_model, d_ff), device),
+        "w_down": nn.trunc_normal(1.0 / math.sqrt(d_ff))(
+            gen, (n_experts, d_ff, d_model), device),
+    }
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """(values, indices) of the k largest per row, ties by lower index."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacity(tokens: int, n_experts: int, top_k: int,
+             capacity_factor: float) -> int:
+    """Slots per expert: ceil(top_k·T/E·cf) rounded up to a multiple of 8,
+    at least 8."""
+    cap = int(math.ceil(top_k * tokens / n_experts * capacity_factor))
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def route(xf: torch.Tensor, router_k: torch.Tensor, *, n_experts: int,
+          top_k: int, capacity_factor: float) -> dict:
+    """The dispatch plan of tokens xf [T, d]: the selected experts `sel`
+    [T, k] and their renormalised weights, and per slot (token-major
+    order) where it lands in the [E, C, d] buffer and whether it is kept
+    under the capacity."""
+    T = xf.shape[0]
+    logits = xf.to(torch.float32) @ router_k.to(torch.float32)
+    gate_vals, sel = _top_k(logits, top_k)                        # [T, k]
+    probs = torch.softmax(gate_vals, dim=-1)                      # renormalized
+
+    TK = T * top_k
+    flat_eid = sel.reshape(TK)
+    sort_idx = torch.argsort(flat_eid, stable=True)
+    sorted_eid = flat_eid[sort_idx]
+    counts = torch.bincount(flat_eid, minlength=n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(TK, device=xf.device) - starts[sorted_eid]
+    keep = pos < capacity(T, n_experts, top_k, capacity_factor)
+    return {"sel": sel, "weights": probs.reshape(TK), "sort_idx": sort_idx,
+            "sorted_eid": sorted_eid, "pos": torch.where(keep, pos, 0),
+            "keep": keep}
+
+
+def _dispatch_compute(xf, router_k, w_gate, w_up, w_down, *, n_experts: int,
+                      top_k: int, capacity_factor: float, dtype):
+    """Token-choice dispatch + grouped GEMMs. xf: [T, d];
+    w_gate/w_up: [E, d, f]; w_down: [E, f, d]. Returns [T, d]."""
+    T, d = xf.shape
+    r = route(xf, router_k, n_experts=n_experts, top_k=top_k,
+              capacity_factor=capacity_factor)
+    sorted_eid, pos, keep = r["sorted_eid"], r["pos"], r["keep"]
+    cap = capacity(T, n_experts, top_k, capacity_factor)
+
+    # ---- scatter tokens into the [E, C, d] buffer
+    tok_of_slot = r["sort_idx"] // top_k
+    gathered = xf[tok_of_slot].to(dtype)
+    zero = torch.zeros((), dtype=dtype, device=xf.device)
+    buf = torch.zeros((n_experts, cap, d), dtype=dtype, device=xf.device)
+    buf = buf.index_put((sorted_eid, pos),
+                        torch.where(keep[:, None], gathered, zero),
+                        accumulate=True)
+
+    # ---- grouped GEMMs
+    h = nn.silu(torch.einsum("ecd,edf->ecf", buf, w_gate.to(dtype))) \
+        * torch.einsum("ecd,edf->ecf", buf, w_up.to(dtype))
+    y_buf = torch.einsum("ecf,efd->ecd", h, w_down.to(dtype))
+
+    # ---- gather back to slots, weight, combine over top_k
+    y_sorted = torch.where(keep[:, None], y_buf[sorted_eid, pos], zero)
+    inv = torch.argsort(r["sort_idx"])
+    y_slots = y_sorted[inv] * r["weights"][:, None].to(dtype)
+    return y_slots.reshape(T, top_k, d).sum(dim=1)
+
+
+def moe_apply(p, x: torch.Tensor, *, n_experts: int, top_k: int,
+              capacity_factor: float = 1.25,
+              dtype=torch.bfloat16) -> torch.Tensor:
+    """x: [B, S, d] -> [B, S, d] (one device: tokens are not sharded)."""
+    B, S, d = x.shape
+    y = _dispatch_compute(x.reshape(B * S, d), p["router"]["kernel"],
+                          p["w_gate"], p["w_up"], p["w_down"],
+                          n_experts=n_experts, top_k=top_k,
+                          capacity_factor=capacity_factor, dtype=dtype)
+    return y.reshape(B, S, d).to(x.dtype)
+
+
+def moe_aux_loss(p, x: torch.Tensor, *, n_experts: int,
+                 top_k: int) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss (mean_prob · mean_assign · E)."""
+    B, S, d = x.shape
+    xf = x.reshape(B * S, d)
+    logits = nn.linear_apply(p["router"], xf, dtype=torch.float32)
+    probs = torch.softmax(logits, dim=-1)                         # [T, E]
+    _, sel = _top_k(logits, top_k)
+    assign = torch.zeros_like(probs).scatter_(1, sel, 1.0)
+    return n_experts * torch.mean(torch.mean(probs, 0) * torch.mean(assign, 0))

@@ -502,3 +502,16 @@ class TestAgainstReference:
             _strip_time(t["metrics"].snapshot())
         assert j["bits"] == t["bits"] and j["staleness"] == t["staleness"]
         _close([r[2:4] for r in j["records"]], [r[2:4] for r in t["records"]])
+
+    def test_sequential_mixed_ef_metrics_match_reference(self, weights):
+        """Same k and δ with EF on and off: the reference builds one
+        compressor per EF mode, so `engine.compressor_compiles` reads 2."""
+        cfg = [(0, 2, 0.1, True), (1, 2, 0.1, False)]
+        out = {pkg: _run(weights, "sequential", pkg=pkg, rounds=4, obs=True,
+                         fleet=_fleet(pkg, cfg))
+               for pkg in ("jax", "torch")}
+        j, t = out["jax"], out["torch"]
+        jsnap = _strip_time(j["metrics"].snapshot())
+        assert jsnap["counters"]["engine.compressor_compiles"] == 2.0
+        assert jsnap == _strip_time(t["metrics"].snapshot())
+        assert j["bits"] == t["bits"] and j["counters"] == t["counters"]
