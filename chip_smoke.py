@@ -126,7 +126,26 @@ Phases (any failure exits non-zero and prints no result line):
             batch's loss falling over its 3 rounds; then
             the smoke config on the card and on the CPU from the same
             weights: identical comm_mb, loss within rtol 1e-3.
-Each of phases 11-13 prints its seconds beside the card's name and power
+14. train   the mesh layer's train path on a world-size-1 NCCL group
+            (FileStore in a temporary directory) and a (1, 1) mesh:
+            gemma3-4b at full width, 2 layers, fp32, S 4096, batch 4 —
+            microbatches=4 against the full batch (loss rtol 1e-5, params
+            rtol 1e-4 / atol 1e-6) and the DTensor step bitwise equal to
+            the plain one, under deterministic algorithms; the prefill and
+            decode builders on DTensor params bitwise equal to
+            `LM.prefill` / `LM.decode_step` (unreduced, fp32, 2 x 16
+            tokens, 4 steps); the real cell — unreduced gemma3-4b, bf16,
+            remat, S 4096, batch 2 in 2 microbatches, 3 momentum-SGD
+            steps: finite losses, fused_momentum == 3, the median step,
+            the peak memory and `launch.dryrun`'s estimate of it (run in
+            a subprocess meanwhile), whose ratio must lie in [0.8, 1.25];
+15. podsync the cross-process pod sync on a (1, 1, 1) mesh of a
+            world-size-1 NCCL group: cnn_fmnist's width in blocks of
+            1024, compact wire at δ 0.01 and dense at δ 0.3, 3 EF rounds
+            each, bitwise equal to the one-card sync (params, residuals,
+            wire bits); launches per round magnitude_hist 2 +
+            compact_blocks 1, and magnitude_hist 2 + ef_topk 1.
+Each of phases 11-15 prints its seconds beside the card's name and power
 limit.
 
 Kernel launch counts are set to 0 just before each main-path run and read
@@ -134,7 +153,9 @@ just after it; launches made to compare a kernel with its plain version
 do not count. The `kernels` line reports fused_momentum's launches from
 `cli`, ef_topk's and magnitude_hist's from `batched`'s topk_threshold run
 (the CLI's engine) and compact_blocks' from `pod`; fused_momentum's
-launches on the datacenter path are printed on a line of their own. The
+launches on the datacenter path and on the mesh train path, and the
+cross-process sync's launches per round, are printed on lines of their
+own. The
 line before the last is {"kernels": [...]}, the last line {"ok": true,
 "device": {...}}.
 """
@@ -150,6 +171,9 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# cuBLAS must know its workspace before the first handle is made for
+# `torch.use_deterministic_algorithms` (the `train` phase's bitwise gate)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # fp32 outside the tensor cores
@@ -1472,6 +1496,372 @@ def phase_datacenter(torch, dev: str = "cuda", cfg=None) -> int:
         fail(f"datacenter parity: card {on_card} vs CPU {on_cpu}")
     return fm
 
+# ------------------------------------------------------------ the mesh layer
+TRAIN_ARCH = "gemma3-4b"
+TRAIN_S, TRAIN_B, TRAIN_MB = 4096, 4, 4           # exactness, 2 layers
+CELL_B, CELL_MB, CELL_STEPS = 2, 2, 3              # the real cell
+CELL_RATIO = (0.8, 1.25)                           # estimate / measured
+CELL_LR, CELL_MOMENTUM = 1e-2, 0.9
+
+
+class OneRankGroup:
+    """A world-size-1 process group (NCCL on the card, gloo on the CPU)
+    over a FileStore in a temporary directory, destroyed on exit."""
+
+    def __init__(self, dev: str):
+        self.dev = dev
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dir = tempfile.mkdtemp()
+        dist.init_process_group(
+            "nccl" if self.dev == "cuda" else "gloo",
+            store=dist.FileStore(os.path.join(self.dir, "store"), 1),
+            rank=0, world_size=1)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _flat_params(torch, lm, src):
+    """A copy of `src` (the LM's parameters, views of one flat buffer) as
+    views of a new flat buffer."""
+    from repro_torch.core import compression as C
+    from repro_torch.dist import sharding as shl
+    return C.unflatten_pytree(shl.flat_local(src).clone(),
+                              lm.param_spec())
+
+
+def _train(torch, lm, params, batch, mb: int, steps: int = 1):
+    """`steps` momentum-SGD train steps; returns (losses, flat params)."""
+    from repro_torch.dist import sharding as shl
+    from repro_torch.dist.steps import make_train_step
+    from repro_torch.optim import momentum_sgd
+    opt = momentum_sgd(1e-2, momentum=0.9)
+    state = opt.init(params)
+    step = make_train_step(lm, opt, microbatches=mb)
+    losses = []
+    for _ in range(steps):
+        _, state, loss = step(params, state, batch)
+        losses.append(loss)
+    return losses, shl.flat_local(params)
+
+
+def _capturing(opt, keep: dict):
+    """`opt` whose update, while `keep["on"]`, first keeps its inputs:
+    copies of the parameters and the momentum (the kernel updates them in
+    place) and the gradient itself (which it only reads)."""
+    from repro_torch.optim import Optimizer
+
+    def update(grads, state, params):
+        if keep.get("on"):
+            keep.update(w=params.detach().clone(), mu=state["mu"].clone(),
+                        g=grads)
+        return opt.update(grads, state, params)
+
+    return Optimizer(opt.init, update, opt.name)
+
+
+def _check_update(torch, keep: dict, w, mu, *, lr: float, momentum: float,
+                  chunk: int = 1 << 28) -> tuple[bool, float, int]:
+    """The kernel's in-place result (`w`, `mu`) against
+    `ref_fused_momentum` on the kept inputs, over the whole flat d in
+    chunks (rtol 2e-5 / atol 1e-6, the kernels phase's). Returns (ok,
+    max abs error, elements that differ at all)."""
+    from repro_torch.kernels.ref import ref_fused_momentum
+    ok, err, n_diff = True, 0.0, 0
+    for a in range(0, w.numel(), chunk):
+        b = min(w.numel(), a + chunk)
+        rw, rmu = ref_fused_momentum(keep["w"][a:b], keep["mu"][a:b],
+                                     keep["g"][a:b], lr=lr,
+                                     momentum=momentum)
+        for got, want in ((w[a:b], rw), (mu[a:b], rmu)):
+            got, want = got.to(torch.float32), want.to(torch.float32)
+            ok = ok and bool(torch.allclose(got, want, rtol=2e-5,
+                                            atol=1e-6))
+            err = max(err, float((got - want).abs().max()))
+            n_diff += int((got != want).sum())
+    return ok, err, n_diff
+
+
+def _estimate_cell(args: list) -> subprocess.Popen:
+    """The dry run's estimator on the real cell, in a process of its own
+    (its `fake` default process group and this one's NCCL group cannot
+    share a process)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun"] + args,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def phase_train(torch, dev: str = "cuda", smoke: bool = False) -> int:
+    """The mesh layer's train path (`dist.steps.make_train_step` on DTensor
+    parameters laid out by `dist.sharding` on a (1, 1) mesh).
+
+    1. gemma3-4b at full width (d_model 2560, 8/4 heads of 256, d_ff
+       10240, vocab 262144), 2 layers, fp32, S 4096, batch 4: the step
+       with microbatches=4 against the full-batch step from the same
+       weights (loss rtol 1e-5, params rtol 1e-4 / atol 1e-6), and the
+       DTensor step against the plain-tensor step, bitwise;
+    2. `make_prefill_step` / `make_decode_step` on the DTensor params
+       against `LM.prefill` / `LM.decode_step` on the plain ones, bitwise:
+       unreduced gemma3-4b in fp32, 2 requests, prompt 16, 4 decode
+       steps;
+    3. the real cell: unreduced gemma3-4b (34 layers, ~3.9 B parameters),
+       bf16 params and compute, remat, momentum SGD (lr 1e-2, momentum
+       0.9), S 4096, batch 2 in 2 microbatches, 3 steps: finite losses,
+       fused_momentum launches == 3; the median step, the peak memory and
+       the dry run's estimate of the peak (`launch.dryrun --mesh one`, run
+       meanwhile in a subprocess), whose ratio must lie in CELL_RATIO.
+       A fourth step, after the counts and the peak are read, keeps the
+       update's inputs (bf16 w, f32 mu, the f32 accumulator as g) and
+       holds the kernel's in-place result over the whole d (~3.9e9, past
+       2^31) against `ref_fused_momentum` at rtol 2e-5 / atol 1e-6.
+    Returns the real cell's fused_momentum launches. `smoke` runs the
+    arch's smoke config at S 64 (a CPU rehearsal)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shl
+    from repro_torch.dist.steps import make_decode_step, make_prefill_step
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.models.transformer import LM
+    t0 = time.perf_counter()
+    full = get_config(TRAIN_ARCH)
+    if smoke:
+        full = full.smoke()
+    S = 64 if smoke else TRAIN_S
+    est_file = os.path.join(tempfile.mkdtemp(), "estimate.json")
+    est = _estimate_cell(
+        ["--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh", "one",
+         "--batch", str(CELL_B), "--seq", str(S), "--microbatch",
+         str(CELL_MB), "--device", dev, "--out", est_file]
+        + (["--smoke"] if smoke else []))
+    f32 = torch.float32
+    with OneRankGroup(dev):
+        mesh = make_local_mesh(1, 1, device_type=dev)
+        # 1. exactness at full width, depth 2
+        cfg = dataclasses.replace(full, n_layers=2)
+        lm = LM(cfg, dtype=f32, param_dtype=f32, remat=True)
+        p0 = lm.init(torch.Generator(device=dev).manual_seed(0), dev)
+        batch = {k: v.to(dev) for k, v in
+                 _lm_batch(torch, cfg, TRAIN_B, S, 1).items()}
+        reset_counts()
+        # deterministic kernels (memory-efficient attention's backward
+        # sums with atomics otherwise), so that equal means bitwise
+        torch.use_deterministic_algorithms(True)
+        try:
+            la, pa = _train(torch, lm, _flat_params(torch, lm, p0), batch, 1)
+            lb, pb = _train(torch, lm, _flat_params(torch, lm, p0), batch,
+                            TRAIN_MB)
+            lmm = dataclasses.replace(lm, batch_axes=("data",),
+                                      act_seq_axis="model")
+            dp = shl.distribute(p0, shl.param_specs(p0, mesh), mesh)
+            lc, pc = _train(torch, lmm, dp, batch, 1)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        n_fm = counts()["fused_momentum"]
+        la, lb, lc = float(la[0]), float(lb[0]), float(lc[0])
+        mb_ok = abs(la - lb) <= 1e-5 * abs(la) and bool(torch.allclose(
+            pa, pb, rtol=1e-4, atol=1e-6))
+        dt_ok = la == lc and bool(torch.equal(pa, pc))
+        msg = (f"[train] {cfg.name} x 2 layers fp32, S {S}, batch "
+               f"{TRAIN_B}: loss {la:.7f}, microbatches={TRAIN_MB} "
+               f"{lb:.7f} (params max abs diff "
+               f"{float((pa - pb).abs().max()):.3e}), DTensor on the (1, 1) "
+               f"mesh {lc:.7f} (params max abs diff "
+               f"{float((pa - pc).abs().max()):.3e}, bitwise {dt_ok}); "
+               f"fused_momentum launches {n_fm}")
+        if not (mb_ok and dt_ok and math.isfinite(la)):
+            fail(msg)
+        if dev == "cuda" and n_fm != 3:
+            fail(msg + " (expected 3: one per step)")
+        log(msg)
+        del p0, pa, pb, pc, dp, batch
+        _reset_peak(torch, dev)
+
+        # 2. the builders against the model, unreduced fp32
+        lm = LM(full, dtype=f32, param_dtype=f32, remat=False)
+        lmm = dataclasses.replace(lm, batch_axes=("data",),
+                                  act_seq_axis="model")
+        params = lm.init(torch.Generator(device=dev).manual_seed(2), dev)
+        dp = shl.distribute(params, shl.param_specs(params, mesh), mesh)
+        g = torch.Generator().manual_seed(3)
+        tok = torch.randint(0, full.vocab, (2, 20), generator=g).to(dev)
+        with torch.no_grad():
+            pl, pcache = lm.prefill(params, {"tokens": tok[:, :16]})
+            ql, qcache = make_prefill_step(lmm)(dp, {"tokens": tok[:, :16]})
+            same = torch.equal(pl, ql.full_tensor()) and all(
+                torch.equal(pcache[k], qcache[k].full_tensor())
+                for k in pcache)
+            pcache = grow_cache(pcache, 20)
+            qcache = shl.distribute(
+                grow_cache({k: v.full_tensor() for k, v in qcache.items()},
+                           20),
+                shl.cache_specs(pcache, mesh), mesh)
+            decode = make_decode_step(lmm)
+            for t in range(16, 20):
+                dl, pcache = lm.decode_step(params, pcache, tok[:, t:t + 1],
+                                            t)
+                el, qcache = decode(dp, qcache, tok[:, t:t + 1], t)
+                same = same and torch.equal(dl, el.full_tensor())
+        msg = (f"[train] builders on the (1, 1) mesh vs the model, "
+               f"{full.name} fp32 ({full.n_layers} layers): prefill 2 x 16 "
+               f"and 4 decode steps bitwise {same}")
+        if not same:
+            fail(msg)
+        log(msg)
+        del params, dp, pcache, qcache
+        _reset_peak(torch, dev)
+
+        # 3. the real cell
+        bf16 = torch.bfloat16
+        lm = LM(full, dtype=bf16, param_dtype=bf16, remat=True,
+                batch_axes=("data",), act_seq_axis="model")
+        params = lm.init(torch.Generator(device=dev).manual_seed(4), dev)
+        dp = shl.distribute(params, shl.param_specs(params, mesh), mesh)
+        del params
+        batch = {k: v.to(torch.int32) for k, v in
+                 _lm_batch(torch, full, CELL_B, S, 5).items()}
+        batch = shl.distribute({k: v.to(dev) for k, v in batch.items()},
+                               shl.batch_specs(batch, mesh), mesh)
+        from repro_torch.dist.steps import make_train_step
+        from repro_torch.optim import momentum_sgd
+        keep: dict = {}
+        opt = _capturing(momentum_sgd(CELL_LR, momentum=CELL_MOMENTUM),
+                         keep)
+        state = opt.init(dp)
+        step = make_train_step(lm, opt, microbatches=CELL_MB)
+        _reset_peak(torch, dev)
+        reset_counts()
+        walls, losses = [], []
+        for _ in range(CELL_STEPS):
+            t1 = time.perf_counter()
+            _, state, loss = step(dp, state, batch)
+            _sync(torch, dev)
+            walls.append(time.perf_counter() - t1)
+            losses.append(float(loss))
+        n_cell = counts()["fused_momentum"]
+        peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+        peak_gib = _peak_gib(torch, dev)
+        # the kernel at the cell's size and dtypes, on a fourth step
+        t1 = time.perf_counter()
+        keep["on"] = True
+        step(dp, state, batch)
+        keep["on"] = False
+        fm_ok, fm_err, fm_diff = _check_update(
+            torch, keep, shl.flat_local(dp), state["mu"], lr=CELL_LR,
+            momentum=CELL_MOMENTUM)
+        d = keep["w"].numel()
+        fm_msg = (f"[train] fused_momentum in the cell's fourth step vs "
+                  f"ref_fused_momentum over the whole d = {d} "
+                  f"({keep['w'].dtype} w, {keep['mu'].dtype} mu, "
+                  f"{keep['g'].dtype} g; "
+                  f"{max(0, d - 2**31)} elements past 2^31): max abs err "
+                  f"{fm_err:.3e}, {fm_diff} elements differ, within rtol "
+                  f"2e-5 / atol 1e-6 {fm_ok} "
+                  f"({time.perf_counter() - t1:.1f}s)")
+        keep.clear()
+        if not fm_ok or (dev == "cuda" and not smoke and d <= 2**31):
+            fail(fm_msg)
+        log(fm_msg)
+        out, err = est.communicate(timeout=900)
+        if est.returncode != 0:
+            fail(f"[train] the dry-run estimator failed:\n{err[-3000:]}")
+        with open(est_file) as f:
+            estimate = json.load(f)["memory"]["peak_bytes"]
+        ratio = estimate / peak if peak else None
+        walls.sort()
+        msg = (f"[train] {full.name} ({full.n_layers} layers) bf16, remat, "
+               f"S {S}, batch {CELL_B} in {CELL_MB} microbatches, "
+               f"{CELL_STEPS} steps: losses {losses}, median step "
+               f"{walls[len(walls) // 2]:.6f}s (all {walls}), "
+               f"fused_momentum launches {n_cell}, peak memory "
+               f"{peak_gib} ({peak} bytes), dry-run estimate "
+               f"{estimate} bytes ({estimate / 2**30:.3f} GiB), "
+               f"estimate / measured {ratio} on {card(dev)} "
+               f"({time.perf_counter() - t0:.1f}s)")
+        if not all(math.isfinite(x) for x in losses):
+            fail(msg)
+        if dev == "cuda" and (n_cell != CELL_STEPS or not
+                              CELL_RATIO[0] <= ratio <= CELL_RATIO[1]):
+            fail(msg)
+        log(msg)
+        del dp, state, batch
+        _reset_peak(torch, dev)
+    return n_cell
+
+
+def phase_podsync(torch, dev: str = "cuda", d: int = D_CNN,
+                  blk: int = 1024) -> dict:
+    """The cross-process pod sync (`make_pod_sync` on a `DeviceMesh`) on a
+    (pod, data, model) = (1, 1, 1) mesh: cnn_fmnist's width (d =
+    1,663,370 in blocks of 1024), δ 0.01 on the compact wire and δ 0.3
+    on the dense wire, 3 EF rounds each. Gate: params, residuals and the
+    wire model bitwise equal to the one-card `make_pod_sync({"pod": 1,
+    ...})`'s. Launches per round of the cross-process sync: magnitude_hist
+    2 and compact_blocks 1 (compact), magnitude_hist 2 and ef_topk 1
+    (dense). Returns the launches of its last compact round."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist import sharding as shl
+    from repro_torch.kernels.checks import vec
+    t0 = time.perf_counter()
+    nb = -(-d // blk)
+    shape = {"pod": 1, "data": 1, "model": 1}
+    last = {}
+    with OneRankGroup(dev):
+        mesh = init_device_mesh(dev, (1, 1, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        pspec = {"x": shl.P(("data", "model"), None)}
+        dspec = {"x": shl.P("pod", ("data", "model"), None)}
+        put = lambda t, spec: shl.distribute({"x": t}, spec, mesh)["x"]
+        for wire, rate, want in (("compact", 0.01, {"magnitude_hist": 2,
+                                                    "compact_blocks": 1}),
+                                 ("dense", 0.3, {"magnitude_hist": 2,
+                                                 "ef_topk": 1})):
+            one = col.make_pod_sync(shape, nb * blk, rate=rate, n_blocks=nb,
+                                    wire=wire)
+            acr = col.make_pod_sync(mesh, nb * blk, rate=rate, n_blocks=nb,
+                                    wire=wire)
+            same = (one.bytes_per_device, one.payload_bits_per_pod) == \
+                (acr.bytes_per_device, acr.payload_bits_per_pod)
+            p1 = vec(nb * blk, 40, dev).view(nb, blk) * 0.01
+            r1 = torch.zeros((1, nb, blk), device=dev)
+            p2, r2 = put(p1.clone(), pspec), put(r1.clone(), dspec)
+            per_round = []
+            for i in range(3):
+                delta = (vec(nb * blk, 41 + i, dev) * 1e-3).view(1, nb, blk)
+                p1, r1 = one(p1, delta, r1)
+                dd = put(delta, dspec)
+                _sync(torch, dev)
+                reset_counts()
+                p2, r2 = acr(p2, dd, r2)
+                _sync(torch, dev)
+                c = {k: v for k, v in counts().items() if v}
+                per_round.append(c)
+                same = same and torch.equal(p1, p2.full_tensor()) and \
+                    torch.equal(r1, r2.full_tensor())
+            msg = (f"[podsync] {wire} wire, δ {rate}, d {d} in {nb} blocks "
+                   f"of {blk}: 3 EF rounds across processes vs one card "
+                   f"bitwise {same} (params, residuals, wire bits "
+                   f"{acr.payload_bits_per_pod}); launches per round "
+                   f"{per_round}")
+            if not same or (dev == "cuda" and any(c != want
+                                                  for c in per_round)):
+                fail(msg)
+            log(msg)
+            if wire == "compact":
+                last = per_round[-1]
+    log(f"[podsync] {time.perf_counter() - t0:.1f}s on {card(dev)}")
+    return last
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1496,10 +1886,15 @@ def main() -> int:
         phase_lm(torch)
         phase_serve(torch)
         dc_fm = phase_datacenter(torch)
+        train_fm = phase_train(torch)
+        sync = phase_podsync(torch)
     except CheckFailed as e:
         fail(str(e))
     log(f"[datacenter] fused_momentum launches on the datacenter path: "
         f"{dc_fm}")
+    log(f"[train] fused_momentum launches on the mesh train path: "
+        f"{train_fm}; [podsync] launches per compact round across "
+        f"processes: {sync}")
     launches = {"fused_momentum": fm, "ef_topk": bt["ef_topk"],
                 "magnitude_hist": bt["magnitude_hist"],
                 "compact_blocks": pod["compact_blocks"]}

@@ -102,10 +102,13 @@ class ArchConfig:
             out[name] = s
         return out
 
-    def input_specs(self, shape_name: str, *, dtype=torch.bfloat16) -> dict:
-        """`meta`-device stand-ins for every model input (no allocation)."""
+    def input_specs(self, shape_name: str, *, dtype=torch.bfloat16,
+                    batch: int | None = None, seq: int | None = None
+                    ) -> dict:
+        """`meta`-device stand-ins for every model input (no allocation);
+        `batch` / `seq` override the shape's."""
         s = SHAPES[shape_name]
-        B, S = s["batch"], s["seq"]
+        B, S = batch or s["batch"], seq or s["seq"]
         kind = s["kind"]
         i32 = torch.int32
 

@@ -8,11 +8,23 @@ density δ and applies the server rule
     w  ←  w − η_g · mean_pods(kept)          (Eq. 6)
     r' =  (delta + r) − kept                 (error feedback)
 
-Layout: the mesh is given by its shape, a dict such as
-{"pod": 4, "data": 2, "model": 1}. The P pods and the S in-pod shards (the
-product of the non-pod axes) all live on one card, and the sync runs over
-them in order. The flat model is blocked [n_blocks, blk]; in-pod shard s
-owns blocks [s·nbl, (s+1)·nbl) with nbl = n_blocks / S.
+Layout: the flat model is blocked [n_blocks, blk]; in-pod shard s owns
+blocks [s·nbl, (s+1)·nbl) with nbl = n_blocks / S, S the product of the
+non-pod axes. The mesh comes in one of two forms:
+
+- its shape, a dict such as {"pod": 4, "data": 2, "model": 1}: the P pods
+  and the S in-pod shards all live on one card, and the sync runs over
+  them in order;
+- a `DeviceMesh` over one process per (pod, in-pod shard): params,
+  deltas and residuals are DTensors laid out as the reference's
+  `shard_map` specs ([n_blocks(in-pod), blk] and [P(pod), n_blocks(in-pod),
+  blk]), and each process works on its own shard. The compact wire
+  all-gathers the payloads over `pod` and scatter-adds them in pod order;
+  the dense wire sums the in-pod shards' `magnitude_hist` counts (integers,
+  so every shard solves the pod's one threshold, the one-card path's),
+  then all-reduces the kept values over `pod`. Residuals equal the
+  one-card path's bitwise; params equal them up to the order of the
+  dense wire's sum over pods.
 
 Wire format (compact path)
 --------------------------
@@ -44,7 +56,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ef_topk, ops, ref
+from repro_torch.dist.sharding import mesh_shape
 from repro_torch.obs.profiling import annotate
 
 VALUE_BYTES = 4    # fp32 payload
@@ -105,7 +118,7 @@ def all_gather_bytes(dim: int, n_pods: int, rate: float, *,
     return float(min(compact, dense))
 
 
-def make_pod_sync(mesh: dict, dim: int, *, rate: float, eta_g: float = 1.0,
+def make_pod_sync(mesh, dim: int, *, rate: float, eta_g: float = 1.0,
                   n_blocks: int, wire: str = "auto"):
     """Build sync(params, deltas, residuals) -> (new_params, new_residuals).
 
@@ -116,7 +129,9 @@ def make_pod_sync(mesh: dict, dim: int, *, rate: float, eta_g: float = 1.0,
     `mesh` is the mesh's shape, e.g. {"pod": 4, "data": 2, "model": 1},
     read as the reference reads `mesh.shape`: the pod count is
     mesh["pod"] (1 without a pod axis) and the in-pod shard count the
-    product of the other axes. dim = n_blocks · blk.
+    product of the other axes. dim = n_blocks · blk. A `DeviceMesh` gives
+    the cross-process sync (module docstring) on DTensors of the same
+    global shapes.
 
     wire: "auto" picks "compact" below `density_crossover` and "dense"
     above; "reference" is the dense-carrier oracle of the compact
@@ -126,6 +141,9 @@ def make_pod_sync(mesh: dict, dim: int, *, rate: float, eta_g: float = 1.0,
     `.payload_bits_per_pod` (bits one pod's whole update occupies on the
     wire — what `dist.steps.make_pod_round_step` charges).
     """
+    procs = None if isinstance(mesh, dict) else mesh
+    if procs is not None:
+        mesh = mesh_shape(procs)
     n_pods = int(mesh["pod"]) if "pod" in mesh else 1
     if dim % n_blocks != 0:
         raise ValueError(f"dim={dim} not divisible by n_blocks={n_blocks}")
@@ -148,6 +166,15 @@ def make_pod_sync(mesh: dict, dim: int, *, rate: float, eta_g: float = 1.0,
         wire_fmt = CompactWire(nbl, blk, budget)
     else:
         wire_fmt = None
+
+    if procs is not None:
+        if wire == "reference":
+            raise ValueError("the dense-carrier oracle runs on one card: "
+                             "pass the mesh's shape dict")
+        sync = _sync_across(procs, dim, n_blocks, blk, n_pods, inpod,
+                            n_shards, rate=rate, eta_g=eta_g, wire=wire,
+                            budget=budget)
+        return _cost(sync, wire, wire_fmt, n_pods, n_shards, dim)
 
     def accumulate(params, deltas, residuals):
         want = (n_pods, n_blocks, blk)
@@ -225,6 +252,11 @@ def make_pod_sync(mesh: dict, dim: int, *, rate: float, eta_g: float = 1.0,
                 update = torch.mean(kept, dim=0)      # Eq. 6 cross-pod reduce
                 return params - eta_g * update, new_residuals
 
+    return _cost(sync, wire, wire_fmt, n_pods, n_shards, dim)
+
+
+def _cost(sync, wire, wire_fmt, n_pods, n_shards, dim):
+    """`sync` with its wire mode and its wire-cost attributes."""
     sync.path = wire
     sync.wire = wire_fmt
     if wire_fmt is not None:
@@ -236,4 +268,77 @@ def make_pod_sync(mesh: dict, dim: int, *, rate: float, eta_g: float = 1.0,
         sync.bytes_per_device = \
             2.0 * (n_pods - 1) / max(n_pods, 1) * dim_local * VALUE_BYTES
         sync.payload_bits_per_pod = float(dim) * 8.0 * VALUE_BYTES
+    return sync
+
+
+def _sync_across(mesh, dim, n_blocks, blk, n_pods, inpod, n_shards, *,
+                 rate, eta_g, wire, budget):
+    """The sync with one process per (pod, in-pod shard) of `mesh`."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import P, placements, _contiguous_stride
+    if n_blocks % n_shards != 0:
+        raise ValueError(f"n_blocks={n_blocks} not divisible by the "
+                         f"in-pod shard count {n_shards}")
+    nbl = n_blocks // n_shards
+    has_pod = "pod" in mesh.mesh_dim_names
+    inpod_entry = inpod if inpod else None
+    p_pl = placements(P(inpod_entry, None), mesh)
+    d_pl = placements(P("pod" if has_pod else None, inpod_entry, None), mesh)
+
+    def local(t, pl, shape):
+        if not isinstance(t, DTensor) or tuple(t.shape) != shape \
+                or tuple(t.placements) != pl:
+            raise ValueError(f"pod sync: expected a DTensor {shape} laid "
+                             f"out {pl}, got {type(t).__name__} "
+                             f"{tuple(t.shape)} "
+                             f"{getattr(t, 'placements', None)}")
+        return t.to_local()
+
+    def wrap(x, pl, shape):
+        return DTensor.from_local(x, mesh, pl, run_check=False, shape=shape,
+                                  stride=_contiguous_stride(shape))
+
+    def sync(params, deltas, residuals):
+        pshape, dshape = (n_blocks, blk), (n_pods, n_blocks, blk)
+        p_l = local(params, p_pl, pshape)
+        d_l = local(deltas, d_pl, dshape)
+        r_l = local(residuals, d_pl, dshape)
+        acc = d_l[0].to(torch.float32) + r_l[0].to(torch.float32)
+        if wire == "compact":
+            with annotate("pod_sync.compact_pack"):
+                vals, idx, _, res = ops.compact_shard_topk(acc, budget=budget)
+            with annotate("pod_sync.all_gather"):
+                vals = spmd.gather(vals, mesh, ["pod"], 0).view(
+                    n_pods, nbl, budget)
+                idx = spmd.gather(idx, mesh, ["pod"], 0).view(
+                    n_pods, nbl, budget)
+            with annotate("pod_sync.scatter_apply"):
+                upd = torch.zeros(nbl * blk, dtype=torch.float32,
+                                  device=acc.device)
+                for p in range(n_pods):
+                    upd.index_add_(0, idx[p].reshape(-1), vals[p].reshape(-1))
+                upd = upd / n_pods
+                new_p = (p_l - eta_g * upd.view(nbl, blk)).to(p_l.dtype)
+            new_r = res
+        else:
+            with annotate("pod_sync.dense"):
+                res32 = r_l[0].to(torch.float32).reshape(-1)
+                g = (acc.reshape(-1) - res32)
+                k = max(1, min(dim, int(round(rate * dim))))
+                # the pod's threshold from its shards' summed statistics;
+                # selected on (acc − r) + r, as the one-card path
+                t = ops.solve_threshold(
+                    g + res32, k, reduce=lambda x, op: spmd.all_reduce(
+                        x, mesh, inpod, op))
+                kept, _, _ = ef_topk.ef_topk(g, res32, t)
+                kept = kept.view(nbl, blk)
+                new_r = acc - kept
+                upd = spmd.all_reduce(kept, mesh, ["pod"], "sum") / n_pods
+                new_p = p_l - eta_g * upd
+        return wrap(new_p, p_pl, pshape), \
+            wrap(new_r[None].to(r_l.dtype), d_pl, dshape)
+
+    sync.mesh = mesh
     return sync

@@ -20,15 +20,28 @@ simulator's batched engine): a stacked [B, d] buffer, `torch.func.vmap`
 gradients (`batched_grad`), and one `opt.update` over the whole [B·d]
 buffer per step.
 
-`make_train_step` and the prefill/decode builders are not ported: the
-reference calls them only from its multi-device dry run; on one card
-`LM.loss`, `LM.prefill` and `LM.decode_step` are called directly.
+  make_train_step        fwd/bwd/update of an `LM` on plain or DTensor
+                         parameters (the reference's builder): an
+                         optional ZeRO-3 redistribute of every param at
+                         step start, and `microbatches=` gradient
+                         accumulation in fp32.
+  make_prefill_step /    thin inference wrappers of `LM.prefill` and
+  make_decode_step       `LM.decode_step` (the cache layout work lives in
+                         `sharding.cache_specs` and the LM's mesh path).
+
+A train step updates in place, as `local_round` does: the parameters are
+views of one flat local buffer (`sharding.distribute`, `LM.init`,
+`transformer.params_from_jax`), the gradient is one flat buffer in the
+same order (the fp32 accumulator itself when `microbatches > 1`), and the
+optimizer updates the buffer once: one `fused_momentum` launch per rank
+for `momentum_sgd`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import compression as C
+from repro_torch.dist import sharding as shl
 from repro_torch.obs.profiling import annotate
 
 
@@ -147,6 +160,10 @@ def make_pod_round_step(lm, opt, k: int, sync, *, spec, dim: int,
     """
 
     def step(params_blocked, opt_states, batches, residuals):
+        if getattr(sync, "mesh", None) is not None:
+            return _pod_round_across(lm, opt, k, sync, spec, dim,
+                                     params_blocked, opt_states, batches,
+                                     residuals)
         nb, blk = params_blocked.shape
         if nb != n_blocks or nb * blk < dim:
             raise ValueError(f"params_blocked {tuple(params_blocked.shape)} "
@@ -174,3 +191,167 @@ def make_pod_round_step(lm, opt, k: int, sync, *, spec, dim: int,
     step.wire_bits_per_pod = float(getattr(sync, "payload_bits_per_pod",
                                            0.0))
     return step
+
+
+def _pod_round_across(lm, opt, k, sync, spec, dim, params_blocked,
+                      opt_states, batches, residuals):
+    """The pod round with one process per (pod, in-pod shard): each
+    process runs its pod's local round on the gathered model (the pod's
+    in-pod processes run the same one), keeps its own blocks of the
+    delta and enters the cross-process sync. `opt_states` holds one state
+    per pod (only this process's pod's is used and replaced); the mean
+    loss is averaged over the pods."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist import spmd
+    mesh = sync.mesh
+    names = mesh.mesh_dim_names
+    nb, blk = params_blocked.shape
+    full = params_blocked.redistribute(
+        mesh, (Replicate(),) * mesh.ndim).to_local()
+    pod = mesh.get_local_rank("pod") if "pod" in names else 0
+    n_pods = residuals.shape[0]
+    s_k, _, delta, losses = local_round(
+        lm.loss, opt, full.reshape(-1)[:dim], spec, opt_states[pod],
+        _steps({key: v[pod] for key, v in batches.items()}, k))
+    padded = torch.zeros((1, nb * blk), dtype=torch.float32,
+                         device=full.device)
+    padded[0, :dim] = delta
+    own = spmd.shard(padded.view(1, nb, blk), mesh,
+                     [a for a in names if a != "pod"], 1)
+    deltas = DTensor.from_local(own.contiguous(), mesh,
+                                residuals.placements, run_check=False,
+                                shape=tuple(residuals.shape),
+                                stride=tuple(residuals.stride()))
+    new_blocked, new_residuals = sync(params_blocked, deltas, residuals)
+    new_states = list(opt_states)
+    new_states[pod] = s_k
+    loss = spmd.all_reduce(torch.stack(losses).mean(), mesh, ["pod"]) \
+        / n_pods
+    return new_blocked, new_states, new_residuals, loss
+
+
+def _microbatches(batch: dict, n: int) -> list[dict]:
+    """n equal microbatches of a batch dict along the batch dim. A
+    DTensor leaf is split in its local shard (each rank's chunk i forms
+    microbatch i): every microbatch holds B/n rows, so the accumulated
+    mean is the full batch's, as in the reference's [n, B/n] split."""
+    from torch.distributed.tensor import DTensor
+
+    def split(t):
+        if not isinstance(t, DTensor):
+            if t.shape[0] % n:
+                raise ValueError(f"batch {t.shape[0]} not divisible by "
+                                 f"{n} microbatches")
+            return t.chunk(n)
+        loc = t.to_local()
+        if loc.shape[0] % n:
+            raise ValueError(f"local batch {loc.shape[0]} not divisible by "
+                             f"{n} microbatches")
+        shape = (t.shape[0] // n,) + tuple(t.shape[1:])
+        return [DTensor.from_local(c, t.device_mesh, t.placements,
+                                   run_check=False, shape=shape,
+                                   stride=shl._contiguous_stride(shape))
+                for c in loc.chunk(n)]
+
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _local_grads(loss, leaves) -> list[torch.Tensor]:
+    """d loss / d leaf for every leaf, as local tensors in each leaf's
+    own layout (a DTensor gradient left partial is summed first)."""
+    from torch.distributed.tensor import DTensor
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    out = []
+    for leaf, g in zip(leaves, grads):
+        if isinstance(g, DTensor):
+            if tuple(g.placements) != tuple(leaf.placements):
+                g = g.redistribute(leaf.device_mesh, leaf.placements)
+            g = g.to_local()
+        out.append(g)
+    return out
+
+
+def make_train_step(lm, opt, *, microbatches: int = 1, pspec=None,
+                    zero3_axes=None):
+    """step(params, opt_state, batch) -> (params, opt_state, loss).
+
+    `params` is a nested dict of tensors or of DTensors (`sharding.
+    distribute`) whose local shards are views of one flat buffer; the
+    step updates that buffer and `opt_state` in place and returns them.
+    zero3_axes: mesh axes the params are additionally sharded over at
+    rest; the step redistributes each param once up front to `pspec`
+    with those axes stripped (the reference's `_strip_axes` +
+    `with_sharding_constraint`), and the gradients return through it.
+    microbatches: split the batch's leading dim into n chunks and
+    accumulate loss and gradient in fp32 — the fp32 accumulator is the
+    flat gradient buffer the optimizer reads."""
+    if zero3_axes and pspec is None:
+        raise ValueError("zero3_axes requires pspec")
+
+    def step(params, opt_state, batch):
+        flat = shl.flat_local(params)
+        if flat is None:
+            raise ValueError("make_train_step: the parameters must be views "
+                             "of one flat buffer (sharding.distribute, "
+                             "LM.init or params_from_jax lay them out so)")
+        # gradient-tracking aliases of the parameters (same storage)
+        run = shl._map(lambda _, t: t.detach().requires_grad_(True), params)
+        leaves = [leaf for _, leaf in shl._with_paths(run)]
+        if zero3_axes:
+            spec_of = dict(shl._with_paths(pspec))
+
+            def gather(path, t):
+                spec = shl.strip_axes(spec_of[path], zero3_axes)
+                return t.redistribute(t.device_mesh,
+                                      shl.placements(spec, t.device_mesh))
+
+            run = shl._map(gather, run)
+        with annotate("train_step"):
+            if microbatches <= 1:
+                loss = lm.loss(run, batch)
+                grad = torch.cat([g.reshape(-1)
+                                  for g in _local_grads(loss, leaves)])
+                loss = loss.detach()
+            else:
+                grad = torch.zeros(flat.numel(), dtype=torch.float32,
+                                   device=flat.device)
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=flat.device)
+                for mb in _microbatches(batch, microbatches):
+                    l = lm.loss(run, mb)
+                    pos = 0
+                    for g in _local_grads(l, leaves):
+                        n = g.numel()
+                        grad[pos:pos + n].add_(g.reshape(-1))
+                        pos += n
+                    loss = loss + l.detach().to(torch.float32)
+                    del l
+                loss = loss / microbatches
+                grad.div_(microbatches)
+            _, opt_state = opt.update(grad, opt_state, flat)
+        return params, opt_state, loss
+
+    return step
+
+
+def make_prefill_step(lm):
+    """prefill(params, batch) -> (last-position logits [B,1,V], cache)."""
+    def prefill(params, batch):
+        with torch.no_grad():
+            return lm.prefill(params, batch)
+    return prefill
+
+
+def make_decode_step(lm):
+    """decode(params, cache, token [B,1], cur_index) -> (logits, cache).
+    The cache may arrive sequence-sharded over `model`
+    (`sharding.cache_specs`): the length-S attention reduction then runs
+    flash-decoding style, one partial softmax per shard, and the cache is
+    written in place, never gathered."""
+    def decode(params, cache, token, cur_index: int):
+        with torch.no_grad():
+            return lm.decode_step(params, cache, token, cur_index)
+    return decode

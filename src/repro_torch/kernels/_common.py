@@ -58,3 +58,23 @@ class StreamWorkspaces:
 
     def keys(self) -> list[tuple]:
         return list(self._ws)
+
+
+def kernel_op(name: str, impl, fake, *, mutates_args=()):
+    """`impl` (a wrapper's device dispatch: the plain version on the CPU,
+    the kernel on a card) as the custom op `repro_torch::<name>`, with
+    `fake` as its fake implementation. Under `FakeTensorMode` (the dry
+    run) the op then allocates only what `fake` returns, the kernel's own
+    outputs, and never runs the plain version's temporaries. A second
+    copy of the port in one process (an A/B of two trees) registers its
+    ops under a suffixed name."""
+    for i in range(1, 100):
+        qual = f"repro_torch::{name}" + (f"_{i}" if i > 1 else "")
+        try:
+            op = torch.library.custom_op(qual, impl,
+                                         mutates_args=mutates_args)
+        except RuntimeError:
+            continue
+        op.register_fake(fake)
+        return op
+    raise RuntimeError(f"kernel_op: no free name for {name}")

@@ -39,6 +39,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._common import kernel_op
 from repro_torch.kernels.ref import ref_compact_blocks
 
 _MAX_ELEMS = 2 ** 31   # indices are int32
@@ -80,9 +81,16 @@ def compact_blocks(acc: torch.Tensor, threshold: torch.Tensor | float, *,
         raise ValueError("compact_blocks threshold: need one f32 value on "
                          f"{acc.device}, got {threshold.dtype} "
                          f"{tuple(threshold.shape)} on {threshold.device}")
-    acc = acc.to(torch.float32).contiguous()
+    return _compact_blocks_op(acc.to(torch.float32).contiguous(), threshold,
+                              budget)
+
+
+def _compact_blocks_impl(acc: torch.Tensor, threshold: torch.Tensor,
+                         budget: int) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor, torch.Tensor]:
     if acc.device.type == "cpu":
         return ref_compact_blocks(acc, threshold, budget)
+    nb, blk = acc.shape
     dev = acc.device
     vals = torch.empty((nb, budget), dtype=torch.float32, device=dev)
     idx = torch.empty((nb, budget), dtype=torch.int32, device=dev)
@@ -94,6 +102,17 @@ def compact_blocks(acc: torch.Tensor, threshold: torch.Tensor | float, *,
         _launch(acc, threshold, budget, (vals, idx, cnt, res),
                 torch.cuda.current_stream(dev))
     return vals, idx, cnt, res
+
+
+def _compact_blocks_fake(acc, threshold, budget):
+    nb = acc.shape[0]
+    return (acc.new_empty((nb, budget)),
+            acc.new_empty((nb, budget), dtype=torch.int32),
+            acc.new_empty((nb,), dtype=torch.int32), torch.empty_like(acc))
+
+
+_compact_blocks_op = kernel_op("compact_blocks", _compact_blocks_impl,
+                               _compact_blocks_fake)
 
 
 def _launch(acc, threshold, budget: int, outs, stream) -> None:

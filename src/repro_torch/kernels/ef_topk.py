@@ -41,7 +41,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import StreamWorkspaces, check_vector
+from repro_torch.kernels._common import (StreamWorkspaces, check_vector,
+                                         kernel_op)
 from repro_torch.kernels.ref import ref_ef_topk
 
 QUAD = 4               # elements per quad (one vector access)
@@ -128,11 +129,25 @@ def ef_topk(g: torch.Tensor, residual: torch.Tensor,
         raise ValueError("ef_topk threshold: need one f32 value on "
                          f"{g.device}, got {threshold.dtype} "
                          f"{tuple(threshold.shape)} on {threshold.device}")
+    return _ef_topk_op(g, residual, threshold)
+
+
+def _ef_topk_impl(g: torch.Tensor, residual: torch.Tensor,
+                  threshold: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     if g.device.type == "cpu":
         return ref_ef_topk(g, residual, threshold)
     with torch.cuda.device(g.device):
         return _launch(g, residual, threshold,
                        torch.cuda.current_stream(g.device))
+
+
+def _ef_topk_fake(g, residual, threshold):
+    return (torch.empty_like(g), torch.empty_like(residual),
+            g.new_empty((), dtype=torch.int32))
+
+
+_ef_topk_op = kernel_op("ef_topk", _ef_topk_impl, _ef_topk_fake)
 
 
 ef_topk.launches = 0

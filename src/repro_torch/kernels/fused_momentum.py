@@ -23,13 +23,16 @@ nothing else touches memory.
 
 A CPU tensor goes through `ref.ref_fused_momentum` (then copied into the
 inputs, to keep the in-place contract); a CUDA tensor launches the kernel
-or raises.
+or raises. The dispatch is the custom op `repro_torch::fused_momentum`
+(`_common.kernel_op`), whose fake implementation writes nothing and
+allocates nothing: the dry run's `FakeTensorMode` counts the kernel's
+memory, not the plain version's temporaries.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._common import check_vector
+from repro_torch.kernels._common import check_vector, kernel_op
 from repro_torch.kernels.ref import ref_fused_momentum
 
 BLOCK = 2048
@@ -62,26 +65,38 @@ def _kernel():
     return _KERNEL
 
 
+def _fused_momentum_impl(w: torch.Tensor, mu: torch.Tensor,
+                         g: torch.Tensor, lr: float, momentum: float) -> None:
+    if w.device.type == "cpu":
+        w_new, mu_new = ref_fused_momentum(w, mu, g, lr=lr, momentum=momentum)
+        w.copy_(w_new)
+        mu.copy_(mu_new)
+        return
+    n = w.numel()
+    if n:
+        with torch.cuda.device(w.device):
+            _kernel()[((n + BLOCK - 1) // BLOCK,)](
+                w, mu, g, n, lr, momentum, BLOCK=BLOCK,
+                num_warps=4, enable_fp_fusion=False)
+    fused_momentum.launches += 1
+
+
+def _fused_momentum_fake(w, mu, g, lr, momentum) -> None:
+    return None
+
+
+_fused_momentum_op = kernel_op("fused_momentum", _fused_momentum_impl,
+                               _fused_momentum_fake, mutates_args=("w", "mu"))
+
+
 def fused_momentum(w: torch.Tensor, mu: torch.Tensor, g: torch.Tensor, *,
                    lr: float, momentum: float = 0.9):
     """Update flat [d] `w` and `mu` in place; returns (w, mu)."""
     check_vector("fused_momentum w", w)
     check_vector("fused_momentum mu", mu, n=w.numel(), device=w.device)
     check_vector("fused_momentum g", g, n=w.numel(), device=w.device)
-    if w.device.type == "cpu":
-        with torch.no_grad():
-            w_new, mu_new = ref_fused_momentum(w, mu, g, lr=lr,
-                                               momentum=momentum)
-            w.copy_(w_new)
-            mu.copy_(mu_new)
-        return w, mu
-    n = w.numel()
-    if n:
-        with torch.cuda.device(w.device):
-            _kernel()[((n + BLOCK - 1) // BLOCK,)](
-                w, mu, g, n, float(lr), float(momentum), BLOCK=BLOCK,
-                num_warps=4, enable_fp_fusion=False)
-    fused_momentum.launches += 1
+    with torch.no_grad():
+        _fused_momentum_op(w, mu, g, float(lr), float(momentum))
     return w, mu
 
 

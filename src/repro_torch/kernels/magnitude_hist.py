@@ -33,7 +33,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import StreamWorkspaces, check_vector
+from repro_torch.kernels._common import (StreamWorkspaces, check_vector,
+                                         kernel_op)
 from repro_torch.kernels.ref import ref_magnitude_hist
 
 MAX_EDGES = 1024
@@ -97,10 +98,23 @@ def magnitude_hist(g: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     n_edges = edges.numel()
     if not 1 <= n_edges <= MAX_EDGES:
         raise ValueError(f"magnitude_hist: {n_edges} edges, need 1..{MAX_EDGES}")
+    return _magnitude_hist_op(g, edges)
+
+
+def _magnitude_hist_impl(g: torch.Tensor, edges: torch.Tensor
+                         ) -> torch.Tensor:
     if g.device.type == "cpu":
         return ref_magnitude_hist(g, edges)
     with torch.cuda.device(g.device):
         return _launch(g, edges, torch.cuda.current_stream(g.device))
+
+
+def _magnitude_hist_fake(g, edges):
+    return edges.new_empty(edges.shape, dtype=torch.int32)
+
+
+_magnitude_hist_op = kernel_op("magnitude_hist", _magnitude_hist_impl,
+                               _magnitude_hist_fake)
 
 
 magnitude_hist.launches = 0

@@ -35,21 +35,29 @@ def _solve_threshold(counts_ge: torch.Tensor, edges: torch.Tensor, k):
     reached = counts_ge >= k
     sel = reached.to(torch.uint8).argmax()       # first True (or 0 if none)
     sel = torch.where(reached.any(), sel, edges.numel() - 1)
-    hi = edges[torch.clamp(sel - 1, min=0)]
-    lo = edges[sel]
+    # `take` with a tensor index reads no value back to the host, so the
+    # solve also traces under FakeTensorMode (the dry run)
+    hi = torch.take(edges, torch.clamp(sel - 1, min=0))
+    lo = torch.take(edges, sel)
     return lo, hi
 
 
 def solve_threshold(acc: torch.Tensor, k, *, coarse_buckets: int = 48,
-                    fine_buckets: int = 128) -> torch.Tensor:
+                    fine_buckets: int = 128, reduce=None) -> torch.Tensor:
     """Histogram-pipeline threshold t (f32 scalar tensor on acc's device)
-    with #{|acc| >= t} ≈ k: two `magnitude_hist` launches."""
+    with #{|acc| >= t} ≈ k: two `magnitude_hist` launches.
+
+    `reduce(x, op)` ("max" or "sum") combines the statistics of a vector
+    split over processes (an all-reduce over its shards): the max and the
+    integer counts combine exactly, so every shard solves the one
+    threshold of the whole vector."""
     dev = acc.device
-    gmax = acc.abs().max().to(torch.float32) + 1e-30
+    reduce = reduce or (lambda x, op: x)
+    gmax = reduce(acc.abs().max().to(torch.float32), "max") + 1e-30
     # pass 1: coarse log2 buckets (gmax·2^-j is exact)
     j = torch.arange(coarse_buckets + 1, dtype=torch.float32, device=dev)
     coarse_edges = gmax * torch.exp2(-j)
-    c_counts = magnitude_hist(acc, coarse_edges)
+    c_counts = reduce(magnitude_hist(acc, coarse_edges), "sum")
     lo, hi = _solve_threshold(c_counts, coarse_edges, k)
     # pass 2: fine linear buckets inside [lo, hi]; separate ops (no FMA)
     frac = torch.arange(fine_buckets + 1, dtype=torch.float32,
@@ -57,7 +65,7 @@ def solve_threshold(acc: torch.Tensor, k, *, coarse_buckets: int = 48,
     width = hi - lo
     fine_edges = hi - width * frac                # descending hi -> lo
     fine_edges = torch.clamp(fine_edges, min=1e-30)
-    f_counts = magnitude_hist(acc, fine_edges)
+    f_counts = reduce(magnitude_hist(acc, fine_edges), "sum")
     _, t = _solve_threshold(f_counts, fine_edges, k)
     return t
 

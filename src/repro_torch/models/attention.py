@@ -77,13 +77,18 @@ def _heads_first(q, k, v):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     prefix_len: int = 0,
-                    softmax_scale: float | None = None) -> torch.Tensor:
-    """q: [B, S, H, hd], k/v: [B, S, KV, hd] with H = KV * G. Returns
-    [B, S, H, hd] in q's dtype; the softmax runs in fp32."""
-    B, S, H, hd = q.shape
+                    softmax_scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: [B, Sq, H, hd], k/v: [B, S, KV, hd] with H = KV * G. Returns
+    [B, Sq, H, hd] in q's dtype; the softmax runs in fp32. The queries sit
+    at positions q_offset .. q_offset + Sq - 1 (a sequence-parallel rank's
+    chunk against the gathered K/V; Sq = S, q_offset = 0 otherwise)."""
+    B, Sq, H, hd = q.shape
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
-    pos = torch.arange(S, device=q.device)
-    msk = _mask(pos, pos, causal=causal, window=window,
+    kpos = torch.arange(k.shape[1], device=q.device)
+    qpos = kpos if Sq == k.shape[1] and not q_offset else \
+        torch.arange(q_offset, q_offset + Sq, device=q.device)
+    msk = _mask(qpos, kpos, causal=causal, window=window,
                 prefix_len=prefix_len)
     qh, kh, vh = _heads_first(q, k, v)
     out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=msk,
@@ -153,6 +158,62 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     else:
         out = torch.einsum("bkgs,bskd->bkgd", pn.to(v_cache.dtype),
                            v_cache).to(torch.float32)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_sharded(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, cur_index: int, *,
+                             seq_offset: int, seq_len: int, reduce,
+                             window: int | None = None,
+                             softmax_scale: float | None = None,
+                             k_scale: torch.Tensor | None = None,
+                             v_scale: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """`decode_attention` over a sequence-sharded cache (flash decoding):
+    this rank holds positions [seq_offset, seq_offset + S_local) of a
+    length-`seq_len` cache. Each rank takes its partial softmax; the
+    (max, sum, out) terms are combined over the shards by
+    `reduce(x, op)` (an all-reduce over the sequence axes, op "max" or
+    "sum"): the row max first, so every probability is the unsharded
+    one's up to the order of the sum. The int8 cache quantizes the
+    probabilities with the row's global max and sums the exact integer
+    dots over the shards."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qh = q.reshape(B, KV, G, hd)
+    if k_scale is not None:
+        q8, qs = quantize_rows(qh.to(torch.float32), 1e-8)
+        wide = _exact_dtype(hd)
+        li = torch.einsum("bkgd,bskd->bkgs", q8.to(wide), k_cache.to(wide))
+        logits = li.to(torch.float32) * qs[..., None] * scale \
+            * k_scale.permute(0, 2, 1)[:, :, None, :]
+    else:
+        logits = torch.einsum("bkgd,bskd->bkgs", qh.to(torch.float32),
+                              k_cache.to(torch.float32)) * scale
+    pos = torch.arange(seq_offset, seq_offset + S, device=q.device)
+    valid = pos <= cur_index
+    if window is not None:
+        valid = valid & (pos > cur_index - window)
+    logits = torch.where(valid[None, None, None, :], logits,
+                         torch.full((), NEG_INF, device=q.device))
+    m = reduce(torch.amax(logits, dim=-1, keepdim=True), "max")
+    p = torch.exp(logits - m)
+    l = reduce(torch.sum(p, dim=-1, keepdim=True), "sum")
+    pn = p / torch.clamp(l, min=1e-30)
+    if v_scale is not None:
+        pf = pn * v_scale.permute(0, 2, 1)[:, :, None, :]
+        ps = torch.clamp(reduce(torch.amax(torch.abs(pf), dim=-1), "max")
+                         / 127.0, min=1e-12)
+        p8 = torch.clamp(torch.round(pf / ps[..., None]), -127, 127)
+        wide = _exact_dtype(seq_len)
+        oi = reduce(torch.einsum("bkgs,bskd->bkgd", p8.to(wide),
+                                 v_cache.to(wide)), "sum")
+        out = oi.to(torch.float32) * ps[..., None]
+    else:
+        out = reduce(torch.einsum("bkgs,bskd->bkgd", pn.to(v_cache.dtype),
+                                  v_cache).to(torch.float32), "sum")
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 

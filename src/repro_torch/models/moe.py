@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer: top-k router + capacity-buffer grouped GEMM
-(PyTorch port of `repro.models.moe`, its unsharded path).
+(PyTorch port of `repro.models.moe`).
 
 Dispatch is the sort → position-in-group → scatter-to-[E, C, d] formulation:
 the grouped matmuls are plain einsums over the expert axis and the FLOPs
@@ -10,12 +10,28 @@ tokens are dropped (Switch-style).
 Which slots drop depends on the order of the sort, so the port sorts as
 the reference does: top-k and the slot sort are stable (ties keep the
 lower index first, as `jax.lax.top_k` and `jnp.argsort`).
+
+Mesh path (`region`, an LM call's `dist.spmd.Region`). Without the
+shard-local dispatch the layer keeps the unsharded semantics: every
+rank gathers all tokens, dispatches them as one group (the global sort and
+capacity GSPMD gives the reference) and keeps its own tokens' outputs.
+With it (`moe_dispatch_axes`, the reference's `shard_tokens_axes`) each
+token shard dispatches alone, as the reference's `shard_map` does:
+
+  tokens   the rank's batch shard, gathered over the expert-TP axes,
+  experts  TP-in-expert: the FSDP (d_model) slices of w_gate / w_up /
+           w_down are gathered, the d_ff slice stays local, and the
+           partial outputs are summed over the TP axes (a reduce-scatter
+           back to the sequence chunks);
+  chunks   at least 1024 tokens each, n in {4, 2, 1}, each recomputed in
+           the backward pass.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import nn
 
@@ -62,7 +78,11 @@ def route(xf: torch.Tensor, router_k: torch.Tensor, *, n_experts: int,
     flat_eid = sel.reshape(TK)
     sort_idx = torch.argsort(flat_eid, stable=True)
     sorted_eid = flat_eid[sort_idx]
-    counts = torch.bincount(flat_eid, minlength=n_experts)
+    # (a scatter-add, not bincount: its size does not depend on the data,
+    # so the dispatch also traces under FakeTensorMode)
+    counts = torch.zeros(n_experts, dtype=torch.int64,
+                         device=xf.device).scatter_add_(
+        0, flat_eid, torch.ones_like(flat_eid))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(TK, device=xf.device) - starts[sorted_eid]
     keep = pos < capacity(T, n_experts, top_k, capacity_factor)
@@ -103,15 +123,86 @@ def _dispatch_compute(xf, router_k, w_gate, w_up, w_down, *, n_experts: int,
 
 
 def moe_apply(p, x: torch.Tensor, *, n_experts: int, top_k: int,
-              capacity_factor: float = 1.25,
-              dtype=torch.bfloat16) -> torch.Tensor:
-    """x: [B, S, d] -> [B, S, d] (one device: tokens are not sharded)."""
+              capacity_factor: float = 1.25, dtype=torch.bfloat16,
+              region=None) -> torch.Tensor:
+    """x: [B, S, d] -> [B, S, d]. `region` (mesh path): x is the rank's
+    tokens; see the module docstring. On the mesh path with the
+    shard-local dispatch, w_gate / w_up / w_down arrive as their at-rest
+    DTensors (the layer leaves them to this function)."""
     B, S, d = x.shape
-    y = _dispatch_compute(x.reshape(B * S, d), p["router"]["kernel"],
-                          p["w_gate"], p["w_up"], p["w_down"],
-                          n_experts=n_experts, top_k=top_k,
-                          capacity_factor=capacity_factor, dtype=dtype)
-    return y.reshape(B, S, d).to(x.dtype)
+    kw = dict(n_experts=n_experts, top_k=top_k,
+              capacity_factor=capacity_factor, dtype=dtype)
+    if region is None:
+        y = _dispatch_compute(x.reshape(B * S, d), p["router"]["kernel"],
+                              p["w_gate"], p["w_up"], p["w_down"], **kw)
+        return y.reshape(B, S, d).to(x.dtype)
+    from repro_torch.dist import spmd
+    mesh = region.mesh
+    if not region.moe_axes:
+        xg = spmd.gather(spmd.gather(x, mesh, region.seq_axes, 1), mesh,
+                         region.batch_axes, 0)
+        y = _dispatch_compute(xg.reshape(-1, d), p["router"]["kernel"],
+                              p["w_gate"], p["w_up"], p["w_down"], **kw)
+        y = spmd.shard(spmd.shard(y.reshape(xg.shape), mesh,
+                                  region.batch_axes, 0),
+                       mesh, region.seq_axes, 1)
+        return y.to(x.dtype)
+    return _moe_shard_local(p, x, region, **kw)
+
+
+def _tp_axes(w, dim: int) -> list[str]:
+    """Mesh axes a DTensor weight is sharded over along tensor dim
+    `dim`."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(w, DTensor):
+        return []
+    names = w.device_mesh.mesh_dim_names
+    return [names[i] for i, pl in enumerate(w.placements)
+            if isinstance(pl, Shard) and pl.dim == dim]
+
+
+def _moe_shard_local(p, x, region, **kw):
+    """The reference's shard_map dispatch: one dispatch per token shard,
+    d_ff sliced over the expert-TP axes."""
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import gather_replicated
+    mesh = region.mesh
+    tp = _tp_axes(p["w_gate"], 2)
+    if _tp_axes(p["w_up"], 2) != tp or _tp_axes(p["w_down"], 1) != tp:
+        raise ValueError("moe: w_gate / w_up / w_down must share the "
+                         "d_ff sharding")
+    wg, wu, wd = (gather_replicated(p[k], keep=tp)
+                  for k in ("w_gate", "w_up", "w_down"))
+    router = gather_replicated(p["router"]["kernel"])
+    # the tokens must be the same on every expert-TP rank
+    seq_tp = [a for a in region.seq_axes if a in tp]
+    batch_tp = [a for a in region.batch_axes if a in tp]
+    xt = spmd.gather(spmd.gather(x, mesh, seq_tp, 1), mesh, batch_tp, 0)
+    b, s, d = xt.shape
+    xf = xt.reshape(b * s, d)
+    T = xf.shape[0]
+    nch = 1
+    for cand in (4, 2, 1):
+        if T % cand == 0 and T // cand >= 1024:
+            nch = cand
+            break
+
+    def one(xc):
+        return _dispatch_compute(xc, router, wg, wu, wd, **kw)
+
+    ys = []
+    for xc in xf.chunk(nch):
+        if torch.is_grad_enabled():
+            ys.append(torch.utils.checkpoint.checkpoint(
+                one, xc, use_reentrant=False))
+        else:
+            ys.append(one(xc))
+    y = (torch.cat(ys) if nch > 1 else ys[0]).reshape(b, s, d)
+    # d_ff was a TP slice: partial sums over the TP axes
+    y = spmd.reduce_scatter(y, mesh, batch_tp, 0)
+    y = spmd.reduce_scatter(y, mesh, seq_tp, 1)
+    y = spmd.all_reduce(y, mesh, [a for a in tp if a not in region.token_axes])
+    return y.to(x.dtype)
 
 
 def moe_aux_loss(p, x: torch.Tensor, *, n_experts: int,

@@ -21,9 +21,38 @@ each block is recomputed in the backward pass (`torch.utils.checkpoint`).
 The LM loss is a sequence-chunked cross-entropy whose logits are taken
 in bf16, as the reference takes them, whatever the compute dtype.
 
-The reference's mesh fields (batch/sequence sharding constraints,
-streamed ZeRO-3 gathers, sharded MoE dispatch, the unrolled dry-run
-mode) have no one-card counterpart and are left out.
+Mesh path. When the parameters are DTensors (laid out by
+`dist.sharding.distribute` on a `DeviceMesh`), every call runs in a
+shard-local region (`dist.spmd.Region`): each rank computes on its own
+tokens with plain local tensors, and the reference's mesh fields map so:
+
+  batch_axes         the batch dim of the tokens is sharded over these
+                     axes (when they divide B);
+  act_seq_axis       sequence parallelism: the residual stream keeps this
+                     rank's S chunk; attention gathers K/V over the axis
+                     and the SSM scan runs on the gathered sequence;
+  zero3_layer /      each layer's weights are gathered INSIDE the layer
+  layer_param_specs  loop (`sharding.gather_replicated`, the reference's
+                     `explicit_gather`: one layer in flight, re-gathered
+                     in the remat'd backward) and their gradients return
+                     to the at-rest shards by reduce-scatter; the specs
+                     are checked against the DTensors' layouts. The port
+                     gathers every layer so, whatever the layout: it does
+                     no tensor-parallel matmul outside the MoE;
+  moe_dispatch_axes  the MoE's shard-local, expert-TP dispatch
+                     (`models.moe`);
+  _constrain         a DTensor residual stream is redistributed to
+                     [B over batch_axes, S over act_seq_axis]; a plain
+                     tensor is left as it is.
+
+The decode cache arrives sequence-sharded (`sharding.cache_specs`): each
+rank takes the partial softmax over its S chunk and the shards combine
+(max, sum, out) by all-reduce (`attention.decode_attention_sharded`);
+the cache is never gathered.
+
+`use_scan` has no counterpart: the layers are a Python loop, so a
+collective or a cost inside a layer is seen once per layer, and the dry
+run needs none of the reference's 1- and 2-layer extrapolation.
 """
 from __future__ import annotations
 
@@ -40,6 +69,7 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import nn
 from repro_torch.models.attention import (FULL_WINDOW, decode_attention,
+                                          decode_attention_sharded,
                                           flash_attention, quantize_rows,
                                           rope)
 
@@ -89,8 +119,11 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, *, device=None) -> dict:
 
 
 # ------------------------------------------------------------- block sub-parts
-def _attn_full(cfg, p, x, window, *, positions, dtype, prefix_len=0):
-    """Full-sequence attention (train/prefill). Returns (out, (k, v))."""
+def _attn_full(cfg, p, x, window, *, positions, dtype, prefix_len=0,
+               region=None):
+    """Full-sequence attention (train/prefill). Returns (out, (k, v)); on
+    the mesh path x is the rank's S chunk, K/V are gathered over the
+    sequence axes and (k, v) are the chunk's."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
     h = _norm_apply(cfg, p["attn_norm"], x)
@@ -99,8 +132,15 @@ def _attn_full(cfg, p, x, window, *, positions, dtype, prefix_len=0):
     v = nn.linear_apply(p["wv"], h, dtype=dtype).reshape(B, S, cfg.n_kv_heads, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                        prefix_len=prefix_len)
+    if region is not None and region.seq_axes:
+        from repro_torch.dist import spmd
+        kf = spmd.gather(k, region.mesh, region.seq_axes, 1)
+        vf = spmd.gather(v, region.mesh, region.seq_axes, 1)
+        o = flash_attention(q, kf, vf, causal=cfg.causal, window=window,
+                            prefix_len=prefix_len, q_offset=region.s0)
+    else:
+        o = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                            prefix_len=prefix_len)
     out = nn.linear_apply(p["wo"], o.reshape(B, S, -1), dtype=dtype)
     return out, (k, v)
 
@@ -112,9 +152,12 @@ def _quantize_kv(x: torch.Tensor):
     return codes.to(torch.int8), scale
 
 
-def _attn_decode(cfg, p, x, cache, cur_index: int, window, *, dtype):
+def _attn_decode(cfg, p, x, cache, cur_index: int, window, *, dtype,
+                 region=None):
     """One-token attention against the cache. Writes position `cur_index`
-    of the layer's cache tensors in place and returns (out, cache)."""
+    of the layer's cache tensors in place and returns (out, cache). On a
+    sequence-sharded cache (`region.cache_seq_axes`) the rank holding
+    `cur_index` writes it and the shards combine their partial softmax."""
     B = x.shape[0]
     hd = cfg.head_dim_
     h = _norm_apply(cfg, p["attn_norm"], x)
@@ -125,31 +168,43 @@ def _attn_decode(cfg, p, x, cache, cur_index: int, window, *, dtype):
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
     kc, vc = cache["k"], cache["v"]
+    sharded = region is not None and region.cache_seq_axes
+    s0 = region.cache_s0 if sharded else 0
+    own = s0 <= cur_index < s0 + kc.shape[1]
+    i = cur_index - s0
+    kw = {}
     if "k_scale" in cache:
         k8, ks = _quantize_kv(k)
         v8, vs = _quantize_kv(v)
-        kc[:, cur_index] = k8[:, 0]
-        vc[:, cur_index] = v8[:, 0]
-        cache["k_scale"][:, cur_index] = ks[:, 0]
-        cache["v_scale"][:, cur_index] = vs[:, 0]
-        o = decode_attention(q, kc, vc, cur_index, window=window,
-                             k_scale=cache["k_scale"],
-                             v_scale=cache["v_scale"])
+        if own:
+            kc[:, i] = k8[:, 0]
+            vc[:, i] = v8[:, 0]
+            cache["k_scale"][:, i] = ks[:, 0]
+            cache["v_scale"][:, i] = vs[:, 0]
+        kw = dict(k_scale=cache["k_scale"], v_scale=cache["v_scale"])
+    elif own:
+        kc[:, i] = k[:, 0].to(kc.dtype)
+        vc[:, i] = v[:, 0].to(vc.dtype)
+    if sharded:
+        from repro_torch.dist import spmd
+        o = decode_attention_sharded(
+            q, kc, vc, cur_index, seq_offset=s0,
+            seq_len=region.cache_len, window=window,
+            reduce=lambda t, op: spmd.all_reduce(
+                t, region.mesh, region.cache_seq_axes, op), **kw)
     else:
-        kc[:, cur_index] = k[:, 0].to(kc.dtype)
-        vc[:, cur_index] = v[:, 0].to(vc.dtype)
-        o = decode_attention(q, kc, vc, cur_index, window=window)
+        o = decode_attention(q, kc, vc, cur_index, window=window, **kw)
     out = nn.linear_apply(p["wo"], o.reshape(B, 1, -1), dtype=dtype)
     return out, cache
 
 
-def _ffn(cfg, p, x, *, dtype):
+def _ffn(cfg, p, x, *, dtype, region=None):
     if cfg.n_experts:
         h = _norm_apply(cfg, p["ffn_norm"], x)
         return moe_lib.moe_apply(p["moe"], h, n_experts=cfg.n_experts,
                                  top_k=cfg.moe_top_k,
                                  capacity_factor=cfg.capacity_factor,
-                                 dtype=dtype)
+                                 dtype=dtype, region=region)
     if cfg.mlp_type == "gated":
         h = _norm_apply(cfg, p["ffn_norm"], x)
         g = nn.silu(nn.linear_apply(p["w_gate"], h, dtype=dtype))
@@ -163,60 +218,76 @@ def _ffn(cfg, p, x, *, dtype):
 
 
 # ----------------------------------------------------------------- block apply
+def _ssm_full(cfg, p, x, *, dtype, collect_cache, region):
+    """The SSM mixer over the full sequence: (out, (state, conv) | None).
+    On the mesh path the scan runs on the sequence gathered over the
+    sequence axes and each rank keeps its chunk's output."""
+    spec = m2.spec_from_cfg(cfg)
+    s_in = _norm_apply(cfg, p["ssm_norm"], x)
+    seq = region.seq_axes if region is not None else ()
+    if seq:
+        from repro_torch.dist import spmd
+        s_in = spmd.gather(s_in, region.mesh, seq, 1)
+    if collect_cache:
+        out, state = m2.mamba2_train(p["ssm"], spec, s_in, dtype=dtype,
+                                     return_state=True)
+    else:
+        out = m2.mamba2_train(p["ssm"], spec, s_in, dtype=dtype)
+        state = None
+    if seq:
+        out = spmd.shard(out, region.mesh, seq, 1)
+    return out, state
+
+
 def block_train(cfg: ArchConfig, p, x, window, *, positions, dtype,
-                prefix_len=0, collect_cache: bool = False):
+                prefix_len=0, collect_cache: bool = False, region=None):
     """Full-sequence block. Returns (x, cache_layer|None)."""
     cache = {}
-    spec = m2.spec_from_cfg(cfg) if cfg.has_ssm else None
     if cfg.parallel_ssm:                      # hymba: attn ‖ ssm on same input
         a_out, kv = _attn_full(cfg, p, x, window, positions=positions,
-                               dtype=dtype, prefix_len=prefix_len)
-        s_in = _norm_apply(cfg, p["ssm_norm"], x)
+                               dtype=dtype, prefix_len=prefix_len,
+                               region=region)
+        s_out, state = _ssm_full(cfg, p, x, dtype=dtype,
+                                 collect_cache=collect_cache, region=region)
         if collect_cache:
-            s_out, (st, cv) = m2.mamba2_train(p["ssm"], spec, s_in,
-                                              dtype=dtype, return_state=True)
-            cache.update(k=kv[0], v=kv[1], ssm=st, conv=cv)
-        else:
-            s_out = m2.mamba2_train(p["ssm"], spec, s_in, dtype=dtype)
+            cache.update(k=kv[0], v=kv[1], ssm=state[0], conv=state[1])
         x = x + 0.5 * (a_out + s_out)
     elif cfg.has_ssm:                         # mamba2: SSM is the mixer
-        s_in = _norm_apply(cfg, p["ssm_norm"], x)
+        s_out, state = _ssm_full(cfg, p, x, dtype=dtype,
+                                 collect_cache=collect_cache, region=region)
         if collect_cache:
-            s_out, (st, cv) = m2.mamba2_train(p["ssm"], spec, s_in,
-                                              dtype=dtype, return_state=True)
-            cache.update(ssm=st, conv=cv)
-        else:
-            s_out = m2.mamba2_train(p["ssm"], spec, s_in, dtype=dtype)
+            cache.update(ssm=state[0], conv=state[1])
         x = x + s_out
     else:
         a_out, kv = _attn_full(cfg, p, x, window, positions=positions,
-                               dtype=dtype, prefix_len=prefix_len)
+                               dtype=dtype, prefix_len=prefix_len,
+                               region=region)
         x = x + a_out
         if collect_cache:
             cache.update(k=kv[0], v=kv[1])
 
-    f = _ffn(cfg, p, x, dtype=dtype)
+    f = _ffn(cfg, p, x, dtype=dtype, region=region)
     if f is not None:
         x = x + f
     return x, (cache if collect_cache else None)
 
 
 def block_decode(cfg: ArchConfig, p, x, cache, cur_index: int, window, *,
-                 dtype):
+                 dtype, region=None):
     """One-token block vs the layer's cache (updated in place). Returns
     (x, cache)."""
     if cfg.parallel_ssm:
         a_out, cache = _attn_decode(cfg, p, x, cache, cur_index, window,
-                                    dtype=dtype)
+                                    dtype=dtype, region=region)
         s_out = _ssm_decode(cfg, p, x, cache, dtype=dtype)
         x = x + 0.5 * (a_out + s_out)
     elif cfg.has_ssm:
         x = x + _ssm_decode(cfg, p, x, cache, dtype=dtype)
     else:
         a_out, cache = _attn_decode(cfg, p, x, cache, cur_index, window,
-                                    dtype=dtype)
+                                    dtype=dtype, region=region)
         x = x + a_out
-    f = _ffn(cfg, p, x, dtype=dtype)
+    f = _ffn(cfg, p, x, dtype=dtype, region=region)
     if f is not None:
         x = x + f
     return x, cache
@@ -259,6 +330,94 @@ class LM:
     remat: bool = True
     kv_dtype: str = "compute"        # "compute" | "int8": int8 codes with
                                      # per-(position, kv-head) fp32 scales
+    # mesh fields (read only when the parameters are DTensors)
+    batch_axes: tuple | None = None  # mesh axes of the token batch dim;
+                                     # None: every rank holds every token
+    moe_dispatch_axes: tuple | None = None  # shard-local MoE dispatch
+    zero3_layer: bool = False        # pure-DP layout: layer weights are
+                                     # sharded over the whole mesh and
+                                     # gathered inside the layer loop
+    layer_param_specs: Any = None    # spec tree of ONE layer (the stack's
+                                     # specs minus the L dim); required
+                                     # with zero3_layer
+    act_seq_axis: str | None = None  # sequence parallelism over this axis
+
+    def _constrain(self, x):
+        """A DTensor residual stream [B, S, d] redistributed to B over
+        `batch_axes` and S over `act_seq_axis` (each where it divides);
+        a plain tensor is returned as it is."""
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor) or self.batch_axes is None:
+            return x
+        from repro_torch.dist import spmd
+        r = spmd.Region(x.device_mesh, B=x.shape[0],
+                        S=x.shape[1] if x.ndim >= 3 else 1,
+                        batch_axes=self.batch_axes,
+                        seq_axis=self.act_seq_axis, moe_axes=None)
+        return x.redistribute(x.device_mesh, r.placements(0, 1))
+
+    def _region(self, params, B: int, S: int):
+        """The shard-local region of a call on DTensor parameters (None
+        for plain tensors: the one-device path)."""
+        mesh = _mesh_of(params)
+        if mesh is None:
+            return None
+        from repro_torch.dist import spmd
+        return spmd.Region(mesh, B=B, S=S, batch_axes=self.batch_axes,
+                           seq_axis=self.act_seq_axis,
+                           moe_axes=self.moe_dispatch_axes)
+
+    def _gather_top(self, params, region):
+        """The non-layer parameters, gathered whole."""
+        from repro_torch.dist.sharding import gather_replicated
+        return {k: (v if k == "layers" else _tree_map(gather_replicated, v))
+                for k, v in params.items()}
+
+    def _layer_shards(self, stacked) -> list:
+        """The L layers of a stacked tree of DTensors: each leaf's local
+        [L, ...] shard unbound (its backward stacks the L gradients) and
+        each layer wrapped again as a DTensor of the layer's shape."""
+        from torch.distributed.tensor import DTensor, Shard
+        from repro_torch.dist.sharding import _contiguous_stride
+
+        def split(t):
+            if not isinstance(t, DTensor):
+                return list(torch.unbind(t, 0))
+            if any(isinstance(pl, Shard) and pl.dim == 0
+                   for pl in t.placements):
+                raise ValueError("the layer dim of a stacked leaf is "
+                                 "sharded")
+            pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                       for p in t.placements)
+            shape = tuple(t.shape[1:])
+            return [DTensor.from_local(u, t.device_mesh, pl,
+                                       run_check=False, shape=shape,
+                                       stride=_contiguous_stride(shape))
+                    for u in torch.unbind(t.to_local(), 0)]
+
+        per_leaf = _tree_map(split, stacked)
+        L = self.cfg.n_layers
+        return [_tree_map(lambda v, i=i: v[i], per_leaf)
+                for i in range(L)]
+
+    def _gather_layer(self, lp, region):
+        """One layer's weights gathered whole (`explicit_gather`); with
+        the shard-local MoE dispatch the expert stacks stay DTensors for
+        `moe_apply`, which keeps their d_ff slices."""
+        from repro_torch.dist.sharding import gather_replicated, placements
+        if self.zero3_layer:
+            if self.layer_param_specs is None:
+                raise ValueError("zero3_layer needs layer_param_specs")
+            for path, t in _paths(lp):
+                want = placements(_get(self.layer_param_specs, path),
+                                  t.device_mesh)
+                if tuple(t.placements) != want:
+                    raise ValueError(f"layer leaf {path}: at rest "
+                                     f"{t.placements}, specs say {want}")
+        keep = {"w_gate", "w_up", "w_down"} if region.moe_axes else set()
+        return _tree_map_path(
+            lambda path, t: t if len(path) > 1 and path[-2] == "moe"
+            and path[-1] in keep else gather_replicated(t), lp)
 
     # ------------------------------------------------------------------ init
     def _tree(self, gen, device) -> dict:
@@ -318,14 +477,22 @@ class LM:
                 for k in cfg.layer_kinds()]
 
     def _stack(self, params, x, *, positions, prefix_len=0,
-               collect_cache=False):
+               collect_cache=False, region=None):
         cfg = self.cfg
         caches = []
-        layers = _unstack(params["layers"], cfg.n_layers)
+        if region is None:
+            layers = _unstack(params["layers"], cfg.n_layers)
+            gather = lambda lp: lp
+        else:
+            layers = self._layer_shards(params["layers"])
+            gather = lambda lp: self._gather_layer(lp, region)
         for lp, w in zip(layers, self._windows()):
+            # the gather runs inside the remat'd function, so the
+            # backward gathers the layer again: one layer in flight
             run = lambda h, lp=lp, w=w: block_train(
-                cfg, lp, h, w, positions=positions, dtype=self.dtype,
-                prefix_len=prefix_len, collect_cache=collect_cache)
+                cfg, gather(lp), h, w, positions=positions,
+                dtype=self.dtype, prefix_len=prefix_len,
+                collect_cache=collect_cache, region=region)
             if self.remat and torch.is_grad_enabled() and not collect_cache:
                 x, c = torch.utils.checkpoint.checkpoint(
                     run, x, use_reentrant=False)
@@ -338,9 +505,17 @@ class LM:
         return x, {k: torch.stack([c[k] for c in caches])
                    for k in caches[0]}
 
-    def _embed_inputs(self, params, batch):
-        """Returns (x [B,S,d], positions [S], prefix_len)."""
+    def _embed_inputs(self, params, batch, region=None):
+        """Returns (x [B,S,d], positions [S], prefix_len). On the mesh
+        path x is the rank's tokens [B_local, S_local, d] and positions
+        their global positions."""
         cfg = self.cfg
+        if region is not None:
+            from repro_torch.dist import spmd
+            batch = {k: region.local_batch(v) for k, v in batch.items()}
+            x, positions, prefix = self._embed_inputs(params, batch)
+            x = spmd.shard(x, region.mesh, region.seq_axes, 1)
+            return x, positions[region.s0:region.s1], prefix
         if cfg.frontend == "frames":
             x = nn.linear_apply(params["frontend"], batch["frames"],
                                 dtype=self.dtype)
@@ -358,8 +533,20 @@ class LM:
         return x, torch.arange(x.shape[1], device=x.device), 0
 
     # ------------------------------------------------------------------ loss
+    def _seq_len(self, batch) -> int:
+        cfg = self.cfg
+        if cfg.frontend == "frames":
+            return batch["frames"].shape[1]
+        if cfg.frontend == "patches":
+            return cfg.n_patches + batch["tokens"].shape[1]
+        return batch["tokens"].shape[1]
+
     def loss(self, params, batch) -> torch.Tensor:
         cfg = self.cfg
+        lead = next(iter(batch.values()))
+        region = self._region(params, lead.shape[0], self._seq_len(batch))
+        if region is not None:
+            return self._loss_sharded(params, batch, region)
         x, positions, prefix = self._embed_inputs(params, batch)
         h, _ = self._stack(params, x, positions=positions, prefix_len=prefix)
         labels = batch["labels"]
@@ -371,14 +558,83 @@ class LM:
         # next-token LM loss, chunked over sequence
         return chunked_ce_loss(h, params["embed"]["embedding"], labels)
 
+    def _loss_sharded(self, params, batch, region) -> torch.Tensor:
+        """The mesh path's loss: this rank's share of the loss (its
+        tokens' terms over the global count, over `region.dup`), whose
+        gradient is the rank's partial sum; its value is the global loss
+        (the shares all-reduced)."""
+        from repro_torch.dist import spmd
+        cfg = self.cfg
+        top = self._gather_top(params, region)
+        x, positions, prefix = self._embed_inputs(top, batch, region)
+        h, _ = self._stack(top, x, positions=positions,
+                           prefix_len=prefix, region=region)
+        labels = region.local_batch(batch["labels"])   # [B_l, full length]
+        B, b_l = next(iter(batch.values())).shape[0], h.shape[0]
+        s0, s1 = region.s0, region.s1
+        if cfg.frontend == "frames":
+            logits = nn.linear_apply(top["head"], h, dtype=F32)
+            part, n_l, n = _ce(logits, labels[:, s0:s1]), \
+                b_l * (s1 - s0), B * region.S
+        else:
+            P = cfg.n_patches if cfg.frontend == "patches" else 0
+            a = max(s0, P)                   # text positions of the chunk
+            h, lab = h[:, a - s0:], labels[:, a - P:s1 - P]
+            n_l, n = b_l * lab.shape[1], B * labels.shape[1]
+            part = chunked_ce_loss(h, top["embed"]["embedding"], lab) \
+                if lab.shape[1] else h.sum() * 0.0
+        scale = n_l / (n * region.dup)
+        if scale != 1.0:
+            part = part * scale
+        total = spmd.all_reduce(part.detach(), region.mesh,
+                                region.mesh.mesh_dim_names)
+        return part + (total - part.detach())
+
     # --------------------------------------------------------------- prefill
     def prefill(self, params, batch):
         """Returns (logits [B, 1, vocab] at the last position, caches
-        stacked [L, ...])."""
+        stacked [L, ...]). On DTensor parameters both come back as
+        DTensors: logits batch-sharded, the cache laid out as the ranks
+        computed it (batch over the batch axes, the KV sequence over the
+        sequence axis)."""
+        lead = next(iter(batch.values()))
+        region = self._region(params, lead.shape[0], self._seq_len(batch))
+        if region is not None:
+            return self._prefill_sharded(params, batch, region)
         x, positions, prefix = self._embed_inputs(params, batch)
         h, caches = self._stack(params, x, positions=positions,
                                 prefix_len=prefix, collect_cache=True)
-        return self._head(params, h[:, -1:, :]), caches
+        # the head reads a contiguous row on both paths: a GEMM may round
+        # a strided operand differently
+        return self._head(params, h[:, -1:, :].contiguous()), caches
+
+    def _prefill_sharded(self, params, batch, region):
+        from torch.distributed.tensor import DTensor
+        from repro_torch.dist import spmd
+        from repro_torch.dist.sharding import _contiguous_stride
+        top = self._gather_top(params, region)
+        x, positions, prefix = self._embed_inputs(top, batch, region)
+        h, caches = self._stack(top, x, positions=positions,
+                                prefix_len=prefix, collect_cache=True,
+                                region=region)
+        # the last position lives on the last sequence rank
+        last = spmd.gather(h[:, -1:, :], region.mesh, region.seq_axes,
+                           1)[:, -1:, :].contiguous()
+        logits = self._head(top, last)
+        B = next(iter(batch.values())).shape[0]
+        out = {}
+        for k, c in caches.items():
+            seq = k in ("k", "v")
+            shape = list(c.shape)
+            shape[1] = B
+            if seq:
+                shape[2] = region.S
+            out[k] = DTensor.from_local(
+                c, region.mesh, region.placements(1, 2 if seq else None),
+                run_check=False, shape=tuple(shape),
+                stride=_contiguous_stride(shape))
+        return region.global_out(logits, (B,) + tuple(logits.shape[1:])), \
+            out
 
     def _head(self, params, h):
         if self.cfg.frontend == "frames":
@@ -392,6 +648,10 @@ class LM:
         that position of `cache` in place; returns (logits [B, 1, vocab],
         cache)."""
         cfg = self.cfg
+        region = self._region(params, token.shape[0], 1)
+        if region is not None:
+            return self._decode_sharded(params, cache, token, cur_index,
+                                        region)
         x = nn.embedding_apply(params["embed"], token, dtype=self.dtype)
         for i, w in enumerate(self._windows()):
             x, _ = block_decode(cfg, _layer(params["layers"], i), x,
@@ -399,6 +659,29 @@ class LM:
                                 dtype=self.dtype)
         x = _norm_apply(cfg, params["final_norm"], x)
         return self._head(params, x), cache
+
+    def _decode_sharded(self, params, cache, token, cur_index: int, region):
+        """decode_step on DTensor parameters and a DTensor cache (batch
+        over the batch axes, the KV sequence over any axes: each rank
+        reads and writes only its own shard)."""
+        from torch.distributed.tensor import DTensor
+        from repro_torch.dist.sharding import to_local
+        cfg = self.cfg
+        if isinstance(cache.get("k"), DTensor):
+            region.cache_layout(cache["k"])
+        local = _tree_map(to_local, cache)
+        top = self._gather_top(params, region)
+        x = nn.embedding_apply(top["embed"], region.local_batch(token),
+                               dtype=self.dtype)
+        layers = self._layer_shards(params["layers"])
+        for i, w in enumerate(self._windows()):
+            x, _ = block_decode(cfg, self._gather_layer(layers[i], region),
+                                x, _layer(local, i), cur_index, w,
+                                dtype=self.dtype, region=region)
+        x = _norm_apply(cfg, top["final_norm"], x)
+        logits = self._head(top, x)
+        return region.global_out(logits, (token.shape[0],)
+                                 + tuple(logits.shape[1:])), cache
 
     # ------------------------------------------------------------- cache init
     def init_cache(self, B: int, S: int, *, dtype=None, device=None) -> dict:
@@ -430,6 +713,36 @@ def _get(tree, path):
     for key in path:
         tree = tree[key]
     return tree
+
+
+def _tree_map(fn, tree):
+    """fn at every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_map_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _tree_map_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _mesh_of(params):
+    """The DeviceMesh of DTensor parameters, else None."""
+    from torch.distributed.tensor import DTensor
+    for _, t in _paths(params):
+        return t.device_mesh if isinstance(t, DTensor) else None
+    return None
 
 
 # ----------------------------------------------------------------------- losses

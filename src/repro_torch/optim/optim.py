@@ -61,10 +61,12 @@ class Optimizer:
 
 
 def _leaves(tree) -> list:
-    """The tensors of a flat tensor or nested dict, in flatten order."""
+    """The tensors of a flat tensor or nested dict, in flatten order; a
+    DTensor contributes its local shard (a view), so the state mirrors
+    the rank's local layout."""
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree) for leaf in _leaves(tree[key])]
-    return [tree]
+    return [tree.to_local() if hasattr(tree, "to_local") else tree]
 
 
 def _flat_zeros(params) -> torch.Tensor:

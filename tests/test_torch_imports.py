@@ -48,11 +48,28 @@ def test_importing_every_module_loads_no_jax():
         repro_torch.__path__, "repro_torch.")]
     assert "repro_torch.models.transformer" in names
     assert "repro_torch.launch.serve" in names
+    for mod in ("repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+                "repro_torch.dist.sharding", "repro_torch.dist.spmd"):
+        assert mod in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_importing_the_mesh_modules_starts_no_process_group():
+    """As the reference's `launch/mesh.py` promises: importing the mesh
+    builders, the sharding rules and the dry run makes no process group
+    (the dry run makes its fake one only when a cell runs)."""
+    code = ("import torch.distributed as dist\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+            "import repro_torch.dist.sharding, repro_torch.dist.spmd\n"
+            "assert not dist.is_initialized()\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=300)
