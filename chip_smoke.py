@@ -139,13 +139,20 @@ Phases (any failure exits non-zero and prints no result line):
             steps: finite losses, fused_momentum == 3, the median step,
             the peak memory and `launch.dryrun`'s estimate of it (run in
             a subprocess meanwhile), whose ratio must lie in [0.8, 1.25];
-15. podsync the cross-process pod sync on a (1, 1, 1) mesh of a
+            on the tp layout, whose one rank splits no weight;
+15. meshserve serving on the mesh layer: unreduced gemma3-4b in bf16 on
+            the (1, 1) mesh, tp layout, prefill of 2 x 16 tokens and 16
+            greedy decode steps through `make_prefill_step` /
+            `make_decode_step` with DTensor parameters; every step's
+            logits bitwise equal to the one-device `LM`'s on the same
+            parameters; tokens/s and peak of both;
+16. podsync the cross-process pod sync on a (1, 1, 1) mesh of a
             world-size-1 NCCL group: cnn_fmnist's width in blocks of
             1024, compact wire at δ 0.01 and dense at δ 0.3, 3 EF rounds
             each, bitwise equal to the one-card sync (params, residuals,
             wire bits); launches per round magnitude_hist 2 +
             compact_blocks 1, and magnitude_hist 2 + ef_topk 1.
-Each of phases 11-15 prints its seconds beside the card's name and power
+Each of phases 11-16 prints its seconds beside the card's name and power
 limit.
 
 Kernel launch counts are set to 0 just before each main-path run and read
@@ -155,9 +162,9 @@ do not count. The `kernels` line reports fused_momentum's launches from
 (the CLI's engine) and compact_blocks' from `pod`; fused_momentum's
 launches on the datacenter path and on the mesh train path, and the
 cross-process sync's launches per round, are printed on lines of their
-own. The
-line before the last is {"kernels": [...]}, the last line {"ok": true,
-"device": {...}}.
+own; `meshserve` prints its counts (the serving path launches none of
+the four). The line before the last is {"kernels": [...]}, the last line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1796,6 +1803,127 @@ def phase_train(torch, dev: str = "cuda", smoke: bool = False) -> int:
     return n_cell
 
 
+MESH_B, MESH_PROMPT, MESH_GEN = 2, 16, 16          # meshserve
+
+
+def _greedy(torch, prefill, decode, params, tokens, gen: int, grow,
+            dev: str):
+    """Prefill `tokens` [B, P], then `gen` greedy decode steps (each the
+    argmax of the last logits). Returns (the gen + 1 logits [B, 1, V] as
+    plain tensors, the prefill wall, the decode wall); `grow(cache,
+    length)` pads the prefill's cache for the decode."""
+    plain = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    B, P = tokens.shape
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens})
+    cache = grow(cache, P + gen)
+    out = [plain(logits)]
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    for t in range(P, P + gen):
+        tok = out[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        logits, cache = decode(params, cache, tok, t)
+        out.append(plain(logits))
+    _sync(torch, dev)
+    return out, t1 - t0, time.perf_counter() - t1
+
+
+def _wall(torch, dev: str, fn, *args) -> float:
+    """The wall time of one call of fn(*args), the card synchronized on
+    both sides."""
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    fn(*args)
+    _sync(torch, dev)
+    return time.perf_counter() - t0
+
+
+def phase_meshserve(torch, dev: str = "cuda", smoke: bool = False) -> dict:
+    """Serving on the mesh layer: unreduced gemma3-4b (34 layers, d_model
+    2560, GQA 8/4 heads of 256, d_ff 10240, vocab 262144) in bf16 on a
+    (1, 1) mesh of a world-size-1 NCCL group, tp layout (tensor-parallel
+    over `model`, sequence-parallel prefill): `make_prefill_step` of
+    MESH_PROMPT tokens, then MESH_GEN greedy `make_decode_step`s at batch
+    MESH_B, with DTensor parameters. Gate: every step's logits bitwise
+    equal to the one-device `LM` on the same parameters (greedy from its
+    own logits). Prints tokens/s, the prefill walls (the first and a
+    second one) and the peak of each path beside the card's name and
+    power limit. Returns the kernel launch counts of the
+    mesh run (the serving path launches none of the four). `smoke` runs
+    the smoke config (a CPU rehearsal)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shl
+    from repro_torch.dist.steps import make_decode_step, make_prefill_step
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.models.transformer import LM
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    if smoke:
+        cfg = cfg.smoke()
+    bf16 = torch.bfloat16
+    lm = LM(cfg, dtype=bf16, param_dtype=bf16, remat=False)
+    g = torch.Generator().manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (MESH_B, MESH_PROMPT),
+                           generator=g).to(dev)
+    with OneRankGroup(dev):
+        mesh = make_local_mesh(1, 1, device_type=dev)
+        lmm = dataclasses.replace(lm, batch_axes=("data",),
+                                  act_seq_axis="model")
+        params = lm.init(torch.Generator(device=dev).manual_seed(6), dev)
+        _reset_peak(torch, dev)
+
+        def grow_mesh(cache, n):
+            full = grow_cache({k: v.full_tensor() for k, v in cache.items()},
+                              n)
+            return shl.distribute(full, shl.cache_specs(full, mesh), mesh)
+
+        with torch.no_grad():
+            one, one_pre, one_dec = _greedy(
+                torch, lm.prefill, lm.decode_step, params, tokens, MESH_GEN,
+                grow_cache, dev)
+            one_pre2 = _wall(torch, dev, lm.prefill, params,
+                             {"tokens": tokens})
+        one_peak = _peak_gib(torch, dev)
+        dp = shl.distribute(params, shl.param_specs(params, mesh), mesh)
+        del params
+        _reset_peak(torch, dev)
+        reset_counts()
+        prefill = make_prefill_step(lmm)
+        got, pre, dec = _greedy(torch, prefill, make_decode_step(lmm), dp,
+                                tokens, MESH_GEN, grow_mesh, dev)
+        launched = counts()
+        peak = _peak_gib(torch, dev)
+        # a second prefill on each path: what the first one paid once
+        # (the first collectives, allocator growth) drops out
+        pre2 = _wall(torch, dev, prefill, dp, {"tokens": tokens})
+        same = all(torch.equal(a, b) for a, b in zip(one, got))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        shape_ok = all(tuple(a.shape) == (MESH_B, 1, cfg.vocab) for a in got)
+        toks = MESH_B * MESH_GEN
+        msg = (f"[meshserve] {cfg.name} ({cfg.n_layers} layers) bf16 on the "
+               f"(1, 1) mesh, tp layout: prefill {MESH_B} x {MESH_PROMPT} "
+               f"then {MESH_GEN} greedy decode steps; logits of all "
+               f"{MESH_GEN + 1} steps bitwise equal to the one-device LM "
+               f"{same} (finite {finite}, shape {shape_ok}); mesh "
+               f"{toks / dec:.3f} tokens/s (decode {dec:.6f}s, prefill "
+               f"{pre:.6f}s, a second prefill {pre2:.6f}s), peak {peak}; "
+               f"one device {toks / one_dec:.3f} tokens/s (decode "
+               f"{one_dec:.6f}s, prefill {one_pre:.6f}s, a second prefill "
+               f"{one_pre2:.6f}s), peak {one_peak}; launches {launched} on "
+               f"{card(dev)} "
+               f"({time.perf_counter() - t0:.1f}s)")
+        if not (same and finite and shape_ok):
+            fail(msg)
+        log(msg)
+        del dp
+        _reset_peak(torch, dev)
+    return launched
+
+
 def phase_podsync(torch, dev: str = "cuda", d: int = D_CNN,
                   blk: int = 1024) -> dict:
     """The cross-process pod sync (`make_pod_sync` on a `DeviceMesh`) on a
@@ -1887,6 +2015,7 @@ def main() -> int:
         phase_serve(torch)
         dc_fm = phase_datacenter(torch)
         train_fm = phase_train(torch)
+        phase_meshserve(torch)
         sync = phase_podsync(torch)
     except CheckFailed as e:
         fail(str(e))

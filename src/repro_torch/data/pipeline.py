@@ -1,5 +1,7 @@
 """Batching pipeline: per-client infinite loaders and stacked-batch
-prefetch (numpy on the host; the simulator moves each batch to its device)."""
+prefetch (numpy on the host; the simulator moves each batch to its
+device), and `sharded_batches`, which lays host batches out on a
+`DeviceMesh` for the mesh layer's steps."""
 from __future__ import annotations
 
 import queue
@@ -98,3 +100,30 @@ class StackedLoader:
     def __iter__(self) -> Iterator[dict]:
         while True:
             yield self.next()
+
+
+def sharded_batches(loader, mesh, batch_axes: tuple[str, ...] = ("data",)
+                    ) -> Iterator[dict]:
+    """Host batches placed on `mesh` (a `DeviceMesh`) as DTensors: the
+    batch (leading) dim of every leaf sharded over `batch_axes` (nested
+    in mesh order), 0-d leaves replicated. Every rank draws the same host
+    batch from its loader, as every process of the reference does, and
+    keeps its own rows; a batch dim the axes do not divide is refused."""
+    import torch
+
+    from repro_torch.dist import sharding as shl
+    n = shl._axis_size(tuple(batch_axes), mesh)
+    if n is None:
+        raise ValueError(f"batch axes {batch_axes} are not all in the mesh "
+                         f"{mesh.mesh_dim_names}")
+    while True:
+        out = {}
+        for k, v in loader.next().items():
+            t = torch.as_tensor(np.asarray(v), device=mesh.device_type)
+            if t.ndim and t.shape[0] % n:
+                raise ValueError(f"batch leaf {k!r}: {t.shape[0]} rows do "
+                                 f"not split over {batch_axes} ({n})")
+            spec = shl.P(tuple(batch_axes), *[None] * (t.ndim - 1)) \
+                if t.ndim else shl.P()
+            out[k] = shl.distribute({k: t}, {k: spec}, mesh)[k]
+        yield out

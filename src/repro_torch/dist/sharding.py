@@ -369,21 +369,24 @@ def flat_local(tree) -> torch.Tensor | None:
 
 
 def gather_replicated(t, *, keep=()):
-    """A DTensor gathered to full size on every rank, as its local tensor:
-    every mesh dim becomes Replicate() except those in `keep` (mesh dim
-    names whose placement stays). The gradient of the result is taken as
-    a per-rank partial sum on the gathered dims, so it returns to the
-    DTensor's own layout by reduce-scatter (Shard) or all-reduce
+    """A DTensor gathered over every mesh dim but those in `keep`, as its
+    local tensor: a dim in `keep` that shards the tensor keeps the rank's
+    shard (the tp layout keeps its `model` feature shards so); every other
+    dim becomes Replicate(). The gradient of the result is taken as a
+    per-rank partial sum on every dim but the kept shards, so it returns
+    to the DTensor's own layout by reduce-scatter (Shard) or all-reduce
     (Replicate). A plain tensor is returned as it is."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if not isinstance(t, DTensor):
         return t
     mesh = t.device_mesh
     names = mesh.mesh_dim_names
-    target = tuple(pl if names[i] in keep else Replicate()
-                   for i, pl in enumerate(t.placements))
-    grads = tuple(pl if names[i] in keep else Partial()
-                  for i, pl in enumerate(t.placements))
+    kept = [names[i] in keep and isinstance(pl, Shard)
+            for i, pl in enumerate(t.placements)]
+    target = tuple(pl if k else Replicate()
+                   for k, pl in zip(kept, t.placements))
+    grads = tuple(pl if k else Partial()
+                  for k, pl in zip(kept, t.placements))
     return t.redistribute(mesh, target).to_local(grad_placements=grads)
 
 

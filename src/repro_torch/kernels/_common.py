@@ -67,14 +67,16 @@ def kernel_op(name: str, impl, fake, *, mutates_args=()):
     run) the op then allocates only what `fake` returns, the kernel's own
     outputs, and never runs the plain version's temporaries. A second
     copy of the port in one process (an A/B of two trees) registers its
-    ops under a suffixed name."""
+    ops under a suffixed name (a taken name is skipped: some torch
+    versions let `custom_op` replace a registered op's implementation
+    without an error, which would send the first copy's calls to the
+    second's)."""
     for i in range(1, 100):
-        qual = f"repro_torch::{name}" + (f"_{i}" if i > 1 else "")
-        try:
-            op = torch.library.custom_op(qual, impl,
-                                         mutates_args=mutates_args)
-        except RuntimeError:
+        op_name = name + (f"_{i}" if i > 1 else "")
+        if hasattr(torch.ops.repro_torch, op_name):
             continue
+        op = torch.library.custom_op(f"repro_torch::{op_name}", impl,
+                                     mutates_args=mutates_args)
         op.register_fake(fake)
         return op
     raise RuntimeError(f"kernel_op: no free name for {name}")

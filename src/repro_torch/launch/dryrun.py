@@ -19,23 +19,25 @@ is SPMD), and three dispatch-level counters read it:
                (`kernels._common.kernel_op`) allocate only what the
                kernels do, never their plain versions' temporaries.
   flops        `torch.utils.flop_counter.FlopCounterMode`: matmuls,
-               convolutions and attention; elementwise work is not
-               counted (XLA's `cost_analysis` counts it, so the numbers
-               are not the reference's quantity).
+               convolutions and attention (the CPU flash SDPA that the
+               fake trace runs is counted by `_attn_flops`, as torch
+               counts the CUDA ones: every score of the mask, forward
+               and backward); elementwise work is not counted (XLA's
+               `cost_analysis` counts it, so the numbers are not the
+               reference's quantity).
   collectives  every c10d functional op, by kind and mesh axis: count,
                result bytes (the reference's per-device quantity) and
                wire bytes per device (ring: (n−1)/n of the gathered or
                scattered tensor, 2(n−1)/n for an all-reduce).
 
-`parallelism` says how a cell runs its weights. The port gathers every
-layer's weights whole on every layout (the reference's `explicit_gather`,
-which the reference runs only under `zero3_layer`), so the tp layout's
-`model` axis is a second FSDP axis ("FSDP over (data, model)"), where the
-reference's GSPMD keeps the `model` shards and runs tensor-parallel
-matmuls; only the shard-local MoE (`--moe-local`) keeps its experts' d_ff
-shards. The tp cells therefore describe another schedule than the
-reference's: weights all-gathered over `model` too, where GSPMD moves
-activations.
+`parallelism` says how a cell runs its weights. The tp layout is the
+reference's: each weight is gathered over `data` (FSDP) inside the layer
+loop and keeps its `model` feature shard, the matmuls are
+tensor-parallel over `model` (column- and row-parallel, the embedding
+and the tied CE vocab-parallel) and train and prefill run Megatron
+sequence parallelism over `model`, so only activations move over
+`model`. The dp layout gathers each layer's weights whole over every
+axis (the reference's `zero3_layer`).
 
 The layers are a Python loop, so everything inside a layer is seen once
 per layer: there is no scan body to extrapolate from (the reference's
@@ -178,10 +180,41 @@ def _group_axes(mesh) -> dict:
     return {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
 
 
+def _dims(t) -> tuple:
+    return tuple(t.shape) if hasattr(t, "shape") else tuple(t)
+
+
+def _sdpa_fwd_flops(q, k, v, *args, **kwargs) -> int:
+    """q·kᵀ and p·v of q [B, Hq, Sq, d], k/v [B, Hkv, Sk, d]."""
+    (b, h, sq, dq), sk, dv = _dims(q), _dims(k)[2], _dims(v)[3]
+    return 2 * b * h * sq * sk * (dq + dv)
+
+
+def _sdpa_bwd_flops(grad_out, q, k, v, *args, **kwargs) -> int:
+    """The scores recomputed, then dP, dV, dQ and dK."""
+    (b, h, sq, dq), sk, dv = _dims(q), _dims(k)[2], _dims(v)[3]
+    return 2 * b * h * sq * sk * (3 * dq + 2 * dv)
+
+
+_sdpa_fwd_flops._get_raw = _sdpa_bwd_flops._get_raw = True
+
+
+def _attn_flops() -> dict:
+    """FlopCounterMode's `custom_mapping` for the CPU flash SDPA (absent
+    from torch's table)."""
+    import torch
+    aten = torch.ops.aten
+    return {aten._scaled_dot_product_flash_attention_for_cpu:
+            _sdpa_fwd_flops,
+            aten._scaled_dot_product_flash_attention_for_cpu_backward:
+            _sdpa_bwd_flops}
+
+
 def estimate(fn, args: tuple, mesh) -> dict:
     """Run fn(*args) once under the counters. `args` are fake tensors
     (made under the caller's `FakeTensorMode`); returns memory (bytes per
-    device), matmul FLOPs per device and the collective schedule."""
+    device), matmul and attention FLOPs per device and the collective
+    schedule."""
     from torch.utils._pytree import tree_flatten
     from torch.utils.flop_counter import FlopCounterMode
     Tracker = _tracker_mode()
@@ -189,7 +222,7 @@ def estimate(fn, args: tuple, mesh) -> dict:
     for t in tree_flatten(args)[0]:
         tr.add(t)
     arg_bytes = tr.bytes
-    flops = FlopCounterMode(display=False)
+    flops = FlopCounterMode(display=False, custom_mapping=_attn_flops())
     with flops, tr:
         out = fn(*args)
         tr.sweep()
@@ -359,12 +392,16 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, verbose: bool = True,
                                        shl._with_paths(cspec)))
     coll = est["collectives"]
     flops = est["flops_per_device"]
-    fsdp = [a for a in names if a != "pod"] if layout == "tp" else list(baxes)
-    parallelism = f"FSDP over ({', '.join(fsdp)})"
-    if layout == "tp" and "pod" in names:
-        parallelism += ", data-parallel over pod"
-    if layout == "tp" and lm.moe_dispatch_axes and cfg.n_experts:
-        parallelism += ", MoE experts' d_ff sharded over model"
+    if layout == "tp":
+        parallelism = "FSDP over data, tensor-parallel over model"
+        if seq_axis:
+            parallelism += ", sequence-parallel over model"
+        if "pod" in names:
+            parallelism += ", data-parallel over pod"
+        if lm.moe_dispatch_axes and cfg.n_experts:
+            parallelism += ", shard-local MoE dispatch"
+    else:
+        parallelism = f"FSDP over ({', '.join(baxes)})"
     res = {
         "arch": arch, "shape": shape, "mesh": mesh_kind, "kind": kind,
         "variant": {"zero3": zero3, "moe_local": moe_local,

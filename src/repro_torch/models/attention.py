@@ -74,6 +74,7 @@ def _heads_first(q, k, v):
 
 
 # ------------------------------------------------- flash attention (train/prefill)
+MASK_ELEMS = 1 << 26     # the largest [Sq, Sk] mask made at once
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     prefix_len: int = 0,
@@ -81,12 +82,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """q: [B, Sq, H, hd], k/v: [B, S, KV, hd] with H = KV * G. Returns
     [B, Sq, H, hd] in q's dtype; the softmax runs in fp32. The queries sit
-    at positions q_offset .. q_offset + Sq - 1 (a sequence-parallel rank's
-    chunk against the gathered K/V; Sq = S, q_offset = 0 otherwise)."""
+    at positions q_offset .. q_offset + Sq - 1 (Sq = S, q_offset = 0 for a
+    whole sequence). Past MASK_ELEMS mask entries the queries run in
+    chunks of MASK_ELEMS // S rows."""
     B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    if Sq * Sk > MASK_ELEMS and Sq > 1:
+        # query chunks, so that no [Sq, Sk] mask (nor SDPA's float copy
+        # of it) is made whole: a 32k prefill's would take 5.4 GB
+        n = max(1, MASK_ELEMS // Sk)
+        return torch.cat([flash_attention(
+            q[:, i:i + n], k, v, causal=causal, window=window,
+            prefix_len=prefix_len, softmax_scale=softmax_scale,
+            q_offset=q_offset + i) for i in range(0, Sq, n)], dim=1)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
-    kpos = torch.arange(k.shape[1], device=q.device)
-    qpos = kpos if Sq == k.shape[1] and not q_offset else \
+    kpos = torch.arange(Sk, device=q.device)
+    qpos = kpos if Sq == Sk and not q_offset else \
         torch.arange(q_offset, q_offset + Sq, device=q.device)
     msk = _mask(qpos, kpos, causal=causal, window=window,
                 prefix_len=prefix_len)

@@ -125,13 +125,27 @@ def _split_proj(s: SSMSpec, zxbcdt: torch.Tensor):
                                 s.n_heads], dim=-1)
 
 
+def _projections(p, dtype, in_proj, out_proj):
+    """The block's two projections: the given callables, else the plain
+    linears (`in_proj(x)` is the whole [z | xBC | dt] row, `out_proj(y)`
+    the block's output)."""
+    return (in_proj or (lambda x: nn.linear_apply(p["in_proj"], x,
+                                                  dtype=dtype)),
+            out_proj or (lambda y: nn.linear_apply(p["out_proj"], y,
+                                                   dtype=dtype)))
+
+
 def mamba2_train(p, s: SSMSpec, x: torch.Tensor, *, chunk: int = 256,
-                 dtype=torch.bfloat16, return_state: bool = False):
+                 dtype=torch.bfloat16, return_state: bool = False,
+                 in_proj=None, out_proj=None):
     """x: [B, S, d_model] -> [B, S, d_model] (full-sequence train/prefill).
     With `return_state`, also (final SSM state, conv state); the conv state
-    holds the last W−1 PRE-activation (pre-bias, pre-silu) xBC rows."""
+    holds the last W−1 PRE-activation (pre-bias, pre-silu) xBC rows.
+    `in_proj` / `out_proj` replace the two linears (the mesh path's
+    tensor-parallel projections)."""
     B, S, _ = x.shape
-    zxbcdt = nn.linear_apply(p["in_proj"], x, dtype=dtype)
+    in_proj, out_proj = _projections(p, dtype, in_proj, out_proj)
+    zxbcdt = in_proj(x)
     z, xBC, dt = _split_proj(s, zxbcdt)
 
     # depthwise causal conv over features of xBC
@@ -151,7 +165,7 @@ def mamba2_train(p, s: SSMSpec, x: torch.Tensor, *, chunk: int = 256,
     y = y + xh.to(F32) * p["D"].to(F32)[None, None, :, None]
     y = y.reshape(B, S, s.d_inner)
     y = nn.rmsnorm_apply(p["norm"], y * nn.silu(z.to(F32)))
-    out = nn.linear_apply(p["out_proj"], y.to(dtype), dtype=dtype)
+    out = out_proj(y.to(dtype))
     if return_state:
         W1 = s.conv_width - 1
         conv_state = xBC32[:, S - W1:, :] if S >= W1 \
@@ -161,12 +175,15 @@ def mamba2_train(p, s: SSMSpec, x: torch.Tensor, *, chunk: int = 256,
 
 
 def mamba2_decode(p, s: SSMSpec, x: torch.Tensor, state: torch.Tensor,
-                  conv_state: torch.Tensor, *, dtype=torch.bfloat16):
+                  conv_state: torch.Tensor, *, dtype=torch.bfloat16,
+                  in_proj=None, out_proj=None):
     """One token. x: [B, 1, d_model]; state: [B,H,P,N] fp32;
     conv_state: [B, W-1, conv_ch] fp32 (pre-activation xBC history).
-    Returns (out [B, 1, d_model], new_state, new_conv_state)."""
+    Returns (out [B, 1, d_model], new_state, new_conv_state).
+    `in_proj` / `out_proj` as in `mamba2_train`."""
     B = x.shape[0]
-    zxbcdt = nn.linear_apply(p["in_proj"], x[:, 0, :], dtype=dtype)
+    in_proj, out_proj = _projections(p, dtype, in_proj, out_proj)
+    zxbcdt = in_proj(x[:, 0, :])
     z, xBC_new, dt = _split_proj(s, zxbcdt)
 
     hist = torch.cat([conv_state, xBC_new.to(F32)[:, None, :]], dim=1)
@@ -186,7 +203,7 @@ def mamba2_decode(p, s: SSMSpec, x: torch.Tensor, state: torch.Tensor,
     y = y + xh.to(F32) * p["D"].to(F32)[None, :, None]
     y = y.reshape(B, s.d_inner)
     y = nn.rmsnorm_apply(p["norm"], y * nn.silu(z.to(F32)))
-    out = nn.linear_apply(p["out_proj"], y.to(dtype), dtype=dtype)
+    out = out_proj(y.to(dtype))
     return out[:, None, :].to(x.dtype), new_state, new_conv_state
 
 

@@ -11,18 +11,23 @@ Which slots drop depends on the order of the sort, so the port sorts as
 the reference does: top-k and the slot sort are stable (ties keep the
 lower index first, as `jax.lax.top_k` and `jnp.argsort`).
 
-Mesh path (`region`, an LM call's `dist.spmd.Region`). Without the
-shard-local dispatch the layer keeps the unsharded semantics: every
-rank gathers all tokens, dispatches them as one group (the global sort and
-capacity GSPMD gives the reference) and keeps its own tokens' outputs.
-With it (`moe_dispatch_axes`, the reference's `shard_tokens_axes`) each
-token shard dispatches alone, as the reference's `shard_map` does:
+Mesh path (`region`, an LM call's `dist.spmd.Region`). The expert
+stacks arrive as local tensors; on the tp layout each keeps its d_ff
+shard over the tp axes (the FSDP (d_model) slices are gathered), so
+every dispatch computes partial outputs that are summed over the tp axes.
+Without the shard-local dispatch the layer keeps the unsharded
+semantics: every rank gathers all tokens, dispatches them as one group
+(the global sort and capacity GSPMD gives the reference), and the
+partial outputs are reduced over the tp axes back to the rank's own
+tokens (a reduce-scatter along S under sequence parallelism, else an
+all-reduce). With it (`moe_dispatch_axes`, the reference's
+`shard_tokens_axes`) each token shard dispatches alone, as the
+reference's `shard_map` does:
 
   tokens   the rank's batch shard, gathered over the expert-TP axes,
-  experts  TP-in-expert: the FSDP (d_model) slices of w_gate / w_up /
-           w_down are gathered, the d_ff slice stays local, and the
-           partial outputs are summed over the TP axes (a reduce-scatter
-           back to the sequence chunks);
+  experts  TP-in-expert: the d_ff slice is local and the partial
+           outputs are summed over the TP axes (a reduce-scatter back to
+           the sequence chunks);
   chunks   at least 1024 tokens each, n in {4, 2, 1}, each recomputed in
            the backward pass.
 """
@@ -124,11 +129,10 @@ def _dispatch_compute(xf, router_k, w_gate, w_up, w_down, *, n_experts: int,
 
 def moe_apply(p, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float = 1.25, dtype=torch.bfloat16,
-              region=None) -> torch.Tensor:
+              region=None, d_ff: int | None = None) -> torch.Tensor:
     """x: [B, S, d] -> [B, S, d]. `region` (mesh path): x is the rank's
-    tokens; see the module docstring. On the mesh path with the
-    shard-local dispatch, w_gate / w_up / w_down arrive as their at-rest
-    DTensors (the layer leaves them to this function)."""
+    tokens and `d_ff` the experts' whole width (w_gate's last dim may be
+    the rank's tp shard of it); see the module docstring."""
     B, S, d = x.shape
     kw = dict(n_experts=n_experts, top_k=top_k,
               capacity_factor=capacity_factor, dtype=dtype)
@@ -137,43 +141,28 @@ def moe_apply(p, x: torch.Tensor, *, n_experts: int, top_k: int,
                               p["w_gate"], p["w_up"], p["w_down"], **kw)
         return y.reshape(B, S, d).to(x.dtype)
     from repro_torch.dist import spmd
-    mesh = region.mesh
-    if not region.moe_axes:
-        xg = spmd.gather(spmd.gather(x, mesh, region.seq_axes, 1), mesh,
-                         region.batch_axes, 0)
-        y = _dispatch_compute(xg.reshape(-1, d), p["router"]["kernel"],
-                              p["w_gate"], p["w_up"], p["w_down"], **kw)
-        y = spmd.shard(spmd.shard(y.reshape(xg.shape), mesh,
-                                  region.batch_axes, 0),
-                       mesh, region.seq_axes, 1)
-        return y.to(x.dtype)
-    return _moe_shard_local(p, x, region, **kw)
-
-
-def _tp_axes(w, dim: int) -> list[str]:
-    """Mesh axes a DTensor weight is sharded over along tensor dim
-    `dim`."""
-    from torch.distributed.tensor import DTensor, Shard
-    if not isinstance(w, DTensor):
-        return []
-    names = w.device_mesh.mesh_dim_names
-    return [names[i] for i, pl in enumerate(w.placements)
-            if isinstance(pl, Shard) and pl.dim == dim]
-
-
-def _moe_shard_local(p, x, region, **kw):
-    """The reference's shard_map dispatch: one dispatch per token shard,
-    d_ff sliced over the expert-TP axes."""
-    from repro_torch.dist import spmd
-    from repro_torch.dist.sharding import gather_replicated
-    mesh = region.mesh
-    tp = _tp_axes(p["w_gate"], 2)
-    if _tp_axes(p["w_up"], 2) != tp or _tp_axes(p["w_down"], 1) != tp:
+    split = spmd.is_shard(region, p["w_gate"].shape[-1], d_ff)
+    if p["w_up"].shape[-1] != p["w_gate"].shape[-1] or \
+            p["w_down"].shape[-2] != p["w_gate"].shape[-1]:
         raise ValueError("moe: w_gate / w_up / w_down must share the "
                          "d_ff sharding")
-    wg, wu, wd = (gather_replicated(p[k], keep=tp)
-                  for k in ("w_gate", "w_up", "w_down"))
-    router = gather_replicated(p["router"]["kernel"])
+    if region.moe_axes:
+        return _moe_shard_local(p, x, region, split, **kw)
+    mesh = region.mesh
+    xg = spmd.gather(spmd.gather(x, mesh, region.seq_axes, 1), mesh,
+                     region.batch_axes, 0)
+    y = _dispatch_compute(xg.reshape(-1, d), p["router"]["kernel"],
+                          p["w_gate"], p["w_up"], p["w_down"], **kw)
+    y = spmd.shard(y.reshape(xg.shape), mesh, region.batch_axes, 0)
+    return region.seq_out(y, partial=split).to(x.dtype)
+
+
+def _moe_shard_local(p, x, region, split: bool, **kw):
+    """The reference's shard_map dispatch: one dispatch per token shard,
+    d_ff sliced over the expert-TP axes (the tp axes when `split`)."""
+    from repro_torch.dist import spmd
+    mesh = region.mesh
+    tp = region.tp_axes if split else []
     # the tokens must be the same on every expert-TP rank
     seq_tp = [a for a in region.seq_axes if a in tp]
     batch_tp = [a for a in region.batch_axes if a in tp]
@@ -188,7 +177,8 @@ def _moe_shard_local(p, x, region, **kw):
             break
 
     def one(xc):
-        return _dispatch_compute(xc, router, wg, wu, wd, **kw)
+        return _dispatch_compute(xc, p["router"]["kernel"], p["w_gate"],
+                                 p["w_up"], p["w_down"], **kw)
 
     ys = []
     for xc in xf.chunk(nch):

@@ -28,27 +28,47 @@ tokens with plain local tensors, and the reference's mesh fields map so:
 
   batch_axes         the batch dim of the tokens is sharded over these
                      axes (when they divide B);
-  act_seq_axis       sequence parallelism: the residual stream keeps this
-                     rank's S chunk; attention gathers K/V over the axis
-                     and the SSM scan runs on the gathered sequence;
-  zero3_layer /      each layer's weights are gathered INSIDE the layer
-  layer_param_specs  loop (`sharding.gather_replicated`, the reference's
-                     `explicit_gather`: one layer in flight, re-gathered
-                     in the remat'd backward) and their gradients return
-                     to the at-rest shards by reduce-scatter; the specs
-                     are checked against the DTensors' layouts. The port
-                     gathers every layer so, whatever the layout: it does
-                     no tensor-parallel matmul outside the MoE;
+  (TP_AXIS)          tensor parallelism over `model` (the tp layout; the
+                     reference's GSPMD infers it from the weights'
+                     layout): each weight is gathered over its FSDP axes
+                     only and keeps its feature shard over `model`.
+                     q/k/v, w_gate/w_up, fc1, in_proj, the frontends and
+                     the head are column-parallel,
+                     wo/w_down/fc2/out_proj row-parallel
+                     (`spmd.column_parallel` / `row_parallel`); the
+                     embedding lookup and the tied CE are vocab-parallel;
+                     attention runs the rank's whole heads, or gathers
+                     q/k/v when its columns split heads; the SSM gathers
+                     in_proj's output and scans on every tp rank; the
+                     MoE keeps its experts' d_ff shards;
+  act_seq_axis       Megatron sequence parallelism: the residual stream
+                     keeps this rank's S chunk, each block's input is
+                     all-gathered along S and each row-parallel output
+                     reduce-scattered back;
+  zero3_layer /      no tp axis: each layer's weights are gathered whole
+  layer_param_specs  INSIDE the layer loop (`sharding.gather_replicated`,
+                     the reference's `explicit_gather`: one layer in
+                     flight, re-gathered in the remat'd backward) and
+                     their gradients return to the at-rest shards by
+                     reduce-scatter; the specs are checked against the
+                     DTensors' layouts (the tp layout gathers inside the
+                     loop too, over the FSDP axes);
   moe_dispatch_axes  the MoE's shard-local, expert-TP dispatch
                      (`models.moe`);
   _constrain         a DTensor residual stream is redistributed to
                      [B over batch_axes, S over act_seq_axis]; a plain
                      tensor is left as it is.
 
-The decode cache arrives sequence-sharded (`sharding.cache_specs`): each
-rank takes the partial softmax over its S chunk and the shards combine
-(max, sum, out) by all-reduce (`attention.decode_attention_sharded`);
-the cache is never gathered.
+The decode cache arrives sequence-sharded (`sharding.cache_specs`, every
+KV head): each rank takes the partial softmax over its S chunk and the
+shards combine (max, sum, out) by all-reduce
+(`attention.decode_attention_sharded`); the cache is never gathered.
+Prefill hands its K/V over to that layout by a gather and a slice, not
+an all-to-all: where a rank's wq columns are not whole heads over whole
+KV heads (gemma3-4b, paligemma, starcoder2 and qwen3-moe at 16 ranks),
+the K/V are already gathered over the tp axes for attention and the
+hand-over only slices the rank's S chunk; only ranks that own whole KV
+heads gather them, once per prompt.
 
 `use_scan` has no counterpart: the layers are a Python loop, so a
 collective or a cost inside a layer is seen once per layer, and the dry
@@ -65,6 +85,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import compression as C
+from repro_torch.dist import spmd
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import nn
@@ -74,6 +95,9 @@ from repro_torch.models.attention import (FULL_WINDOW, decode_attention,
                                           rope)
 
 F32 = torch.float32
+# the mesh axis the weights' feature dims are sharded over on the tp
+# layout (`sharding.param_specs`' model_axis)
+TP_AXIS = "model"
 
 
 def _norm_init(cfg, d, device=None):
@@ -119,30 +143,108 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, *, device=None) -> dict:
 
 
 # ------------------------------------------------------------- block sub-parts
+# On the mesh path (`region` given) every projection runs through
+# `spmd.column_parallel` / `spmd.row_parallel`: on the tp layout a
+# weight's feature dim is the rank's shard over the tp axes, elsewhere it
+# is whole and the same code is the one-device linear.
+def _col_whole(p, x, region, full: int, dtype):
+    """A column-parallel projection's whole output (its features gathered
+    over the tp axes when the rank holds a shard)."""
+    y, split = spmd.column_parallel(p, x, region, full, dtype=dtype)
+    return region.tp_gather(y, split) if split else y
+
+
+def _own_heads(cfg, region) -> tuple[int, int] | None:
+    """(first, count) of the q heads this rank attends with when its wq
+    columns are whole heads whose KV heads it can read, else None."""
+    n, H = region.tp_size, cfg.n_heads
+    G = H // cfg.n_kv_heads                     # q heads per KV head
+    if H % n or ((H // n) % G and G % (H // n)):
+        return None
+    return region.tp_rank * (H // n), H // n
+
+
+def _qkv(cfg, p, h, positions, dtype, region, collect: bool):
+    """(q, k, v, kv, cols): q, k, v [B, S, heads, hd] (rope'd) of the
+    heads this rank attends with, with `collect` (k, v) of every KV head
+    (the cache's), and the slice of the attention's output columns that
+    are this rank's wo rows (None: all of them, or `row_parallel`'s).
+
+    One device, or a whole wq: every head. On the tp layout, whole heads
+    (`_own_heads`): the rank's q heads; its KV heads are its own wk/wv
+    columns when the tp axes divide n_kv_heads, else the k/v activations
+    are gathered over the tp axes and the KV heads its q heads need are
+    read. Split heads (the rank's wq columns cut a head): q, k and v are
+    gathered over the tp axes and the rank attends with the heads its
+    columns touch, each with its KV head."""
+    B, S, _ = h.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    G = H // KV
+    split = region is not None and spmd.is_shard(
+        region, p["wq"]["kernel"].shape[-1], H * hd)
+    own = _own_heads(cfg, region) if split else None
+    if own is not None:
+        h0, hl = own
+        q, _ = spmd.column_parallel(p["wq"], h, region, H * hd, dtype=dtype)
+        q = rope(q.reshape(B, S, hl, hd), positions, cfg.rope_theta)
+        k, kv_split = spmd.column_parallel(p["wk"], h, region, KV * hd,
+                                           dtype=dtype)
+        v, _ = spmd.column_parallel(p["wv"], h, region, KV * hd,
+                                    dtype=dtype)
+        if kv_split and KV % region.tp_size == 0:   # its own KV heads
+            k = rope(k.reshape(B, S, -1, hd), positions, cfg.rope_theta)
+            v = v.reshape(B, S, -1, hd)
+            kv = (region.tp_gather(k, True).reshape(B, S, KV, hd),
+                  region.tp_gather(v, True).reshape(B, S, KV, hd)) \
+                if collect else None
+            return q, k, v, kv, None
+        k = rope(region.tp_gather(k, kv_split).reshape(B, S, KV, hd),
+                 positions, cfg.rope_theta)
+        v = region.tp_gather(v, kv_split).reshape(B, S, KV, hd)
+        k0, kn = h0 // G, max(1, hl // G)
+        return q, k[:, :, k0:k0 + kn], v[:, :, k0:k0 + kn], (k, v), None
+    q = _col_whole(p["wq"], h, region, H * hd, dtype)
+    k = _col_whole(p["wk"], h, region, KV * hd, dtype)
+    v = _col_whole(p["wv"], h, region, KV * hd, dtype)
+    q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+    v = v.reshape(B, S, KV, hd)
+    if not split:
+        return q, k, v, (k, v), None
+    c = H * hd // region.tp_size            # the rank's output columns
+    c0 = region.tp_rank * c
+    h0, h1 = c0 // hd, (c0 + c - 1) // hd + 1
+    kv_of = torch.arange(h0, h1, device=h.device) // G
+    return q[:, :, h0:h1], k[:, :, kv_of], v[:, :, kv_of], (k, v), \
+        slice(c0 - h0 * hd, c0 - h0 * hd + c)
+
+
 def _attn_full(cfg, p, x, window, *, positions, dtype, prefix_len=0,
-               region=None):
-    """Full-sequence attention (train/prefill). Returns (out, (k, v)); on
-    the mesh path x is the rank's S chunk, K/V are gathered over the
-    sequence axes and (k, v) are the chunk's."""
-    B, S, _ = x.shape
+               region=None, collect: bool = False):
+    """Full-sequence attention (train/prefill). Returns (out, (k, v) |
+    None). On the mesh path x is the rank's S chunk: the block's input is
+    gathered along S, q/k/v are column-parallel (`_qkv`), wo is
+    row-parallel on the rank's columns of the output, and (k, v) are the
+    chunk's, every KV head."""
+    B = x.shape[0]
     hd = cfg.head_dim_
     h = _norm_apply(cfg, p["attn_norm"], x)
-    q = nn.linear_apply(p["wq"], h, dtype=dtype).reshape(B, S, cfg.n_heads, hd)
-    k = nn.linear_apply(p["wk"], h, dtype=dtype).reshape(B, S, cfg.n_kv_heads, hd)
-    v = nn.linear_apply(p["wv"], h, dtype=dtype).reshape(B, S, cfg.n_kv_heads, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if region is not None:
+        h = region.seq_in(h)
+    S = h.shape[1]
+    q, k, v, kv, cols = _qkv(cfg, p, h, positions, dtype, region, collect)
+    o = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                        prefix_len=prefix_len).reshape(B, S, -1)
+    out = spmd.row_parallel(p["wo"], o if cols is None else o[..., cols],
+                            region, cfg.n_heads * hd, dtype=dtype)
+    if not collect:
+        return out, None
     if region is not None and region.seq_axes:
-        from repro_torch.dist import spmd
-        kf = spmd.gather(k, region.mesh, region.seq_axes, 1)
-        vf = spmd.gather(v, region.mesh, region.seq_axes, 1)
-        o = flash_attention(q, kf, vf, causal=cfg.causal, window=window,
-                            prefix_len=prefix_len, q_offset=region.s0)
-    else:
-        o = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                            prefix_len=prefix_len)
-    out = nn.linear_apply(p["wo"], o.reshape(B, S, -1), dtype=dtype)
-    return out, (k, v)
+        # the chunk in storage of its own: a view would keep the whole
+        # sequence's K/V of every layer alive until the caches stack
+        kv = tuple(spmd.shard(t, region.mesh, region.seq_axes, 1).clone()
+                   for t in kv)
+    return out, kv
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -157,13 +259,19 @@ def _attn_decode(cfg, p, x, cache, cur_index: int, window, *, dtype,
     """One-token attention against the cache. Writes position `cur_index`
     of the layer's cache tensors in place and returns (out, cache). On a
     sequence-sharded cache (`region.cache_seq_axes`) the rank holding
-    `cur_index` writes it and the shards combine their partial softmax."""
+    `cur_index` writes it and the shards combine their partial softmax;
+    on the tp layout the token's q/k/v are gathered over the tp axes
+    (every head meets the rank's S chunk of the cache) and wo is
+    row-parallel."""
     B = x.shape[0]
     hd = cfg.head_dim_
     h = _norm_apply(cfg, p["attn_norm"], x)
-    q = nn.linear_apply(p["wq"], h, dtype=dtype).reshape(B, 1, cfg.n_heads, hd)
-    k = nn.linear_apply(p["wk"], h, dtype=dtype).reshape(B, 1, cfg.n_kv_heads, hd)
-    v = nn.linear_apply(p["wv"], h, dtype=dtype).reshape(B, 1, cfg.n_kv_heads, hd)
+    q = _col_whole(p["wq"], h, region, cfg.n_heads * hd, dtype
+                   ).reshape(B, 1, cfg.n_heads, hd)
+    k = _col_whole(p["wk"], h, region, cfg.n_kv_heads * hd, dtype
+                   ).reshape(B, 1, cfg.n_kv_heads, hd)
+    v = _col_whole(p["wv"], h, region, cfg.n_kv_heads * hd, dtype
+                   ).reshape(B, 1, cfg.n_kv_heads, hd)
     pos = torch.tensor([cur_index], device=x.device)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
@@ -186,7 +294,6 @@ def _attn_decode(cfg, p, x, cache, cur_index: int, window, *, dtype,
         kc[:, i] = k[:, 0].to(kc.dtype)
         vc[:, i] = v[:, 0].to(vc.dtype)
     if sharded:
-        from repro_torch.dist import spmd
         o = decode_attention_sharded(
             q, kc, vc, cur_index, seq_offset=s0,
             seq_len=region.cache_len, window=window,
@@ -194,49 +301,66 @@ def _attn_decode(cfg, p, x, cache, cur_index: int, window, *, dtype,
                 t, region.mesh, region.cache_seq_axes, op), **kw)
     else:
         o = decode_attention(q, kc, vc, cur_index, window=window, **kw)
-    out = nn.linear_apply(p["wo"], o.reshape(B, 1, -1), dtype=dtype)
+    out = spmd.row_parallel(p["wo"], o.reshape(B, 1, -1), region,
+                            cfg.n_heads * hd, dtype=dtype)
     return out, cache
 
 
 def _ffn(cfg, p, x, *, dtype, region=None):
+    """The MLP (or MoE) sub-block's output. On the mesh path the dense
+    MLP is column-parallel (w_gate / w_up / fc1, each rank its d_ff
+    columns) then row-parallel (w_down / fc2)."""
     if cfg.n_experts:
         h = _norm_apply(cfg, p["ffn_norm"], x)
         return moe_lib.moe_apply(p["moe"], h, n_experts=cfg.n_experts,
                                  top_k=cfg.moe_top_k,
                                  capacity_factor=cfg.capacity_factor,
-                                 dtype=dtype, region=region)
+                                 dtype=dtype, region=region, d_ff=cfg.d_ff)
+    if cfg.mlp_type not in ("gated", "gelu"):
+        return None
+    h = _norm_apply(cfg, p["ffn_norm"], x)
+    if region is not None:
+        h = region.seq_in(h)
+    col = lambda name: spmd.column_parallel(p[name], h, region, cfg.d_ff,
+                                            dtype=dtype)[0]
     if cfg.mlp_type == "gated":
-        h = _norm_apply(cfg, p["ffn_norm"], x)
-        g = nn.silu(nn.linear_apply(p["w_gate"], h, dtype=dtype))
-        u = nn.linear_apply(p["w_up"], h, dtype=dtype)
-        return nn.linear_apply(p["w_down"], g * u, dtype=dtype)
-    if cfg.mlp_type == "gelu":
-        h = _norm_apply(cfg, p["ffn_norm"], x)
-        h = nn.gelu(nn.linear_apply(p["fc1"], h, dtype=dtype))
-        return nn.linear_apply(p["fc2"], h, dtype=dtype)
-    return None
+        f, down = nn.silu(col("w_gate")) * col("w_up"), "w_down"
+    else:
+        f, down = nn.gelu(col("fc1")), "fc2"
+    return spmd.row_parallel(p[down], f, region, cfg.d_ff, dtype=dtype)
 
 
 # ----------------------------------------------------------------- block apply
+def _ssm_projections(cfg, p, region, dtype) -> dict:
+    """The mesh path's SSM projections: in_proj column-parallel with its
+    output gathered over the tp axes (its columns interleave z, x, B, C
+    and dt, so no shard stands alone: the conv, the scan and the gated
+    norm run on every tp rank), out_proj row-parallel (the rank's d_inner
+    rows)."""
+    if region is None:
+        return {}
+    s = m2.spec_from_cfg(cfg)
+    return dict(
+        in_proj=lambda x: _col_whole(p["in_proj"], x, region,
+                                     2 * s.d_inner + 2 * s.state + s.n_heads,
+                                     dtype),
+        out_proj=lambda y: spmd.row_parallel(p["out_proj"], y, region,
+                                             s.d_inner, dtype=dtype))
+
+
 def _ssm_full(cfg, p, x, *, dtype, collect_cache, region):
     """The SSM mixer over the full sequence: (out, (state, conv) | None).
-    On the mesh path the scan runs on the sequence gathered over the
-    sequence axes and each rank keeps its chunk's output."""
+    On the mesh path the scan runs on the block's input gathered along S
+    and the row-parallel out_proj returns the rank's chunk."""
     spec = m2.spec_from_cfg(cfg)
     s_in = _norm_apply(cfg, p["ssm_norm"], x)
-    seq = region.seq_axes if region is not None else ()
-    if seq:
-        from repro_torch.dist import spmd
-        s_in = spmd.gather(s_in, region.mesh, seq, 1)
+    if region is not None:
+        s_in = region.seq_in(s_in)
+    kw = _ssm_projections(cfg, p["ssm"], region, dtype)
     if collect_cache:
-        out, state = m2.mamba2_train(p["ssm"], spec, s_in, dtype=dtype,
-                                     return_state=True)
-    else:
-        out = m2.mamba2_train(p["ssm"], spec, s_in, dtype=dtype)
-        state = None
-    if seq:
-        out = spmd.shard(out, region.mesh, seq, 1)
-    return out, state
+        return m2.mamba2_train(p["ssm"], spec, s_in, dtype=dtype,
+                               return_state=True, **kw)
+    return m2.mamba2_train(p["ssm"], spec, s_in, dtype=dtype, **kw), None
 
 
 def block_train(cfg: ArchConfig, p, x, window, *, positions, dtype,
@@ -246,7 +370,7 @@ def block_train(cfg: ArchConfig, p, x, window, *, positions, dtype,
     if cfg.parallel_ssm:                      # hymba: attn ‖ ssm on same input
         a_out, kv = _attn_full(cfg, p, x, window, positions=positions,
                                dtype=dtype, prefix_len=prefix_len,
-                               region=region)
+                               region=region, collect=collect_cache)
         s_out, state = _ssm_full(cfg, p, x, dtype=dtype,
                                  collect_cache=collect_cache, region=region)
         if collect_cache:
@@ -261,7 +385,7 @@ def block_train(cfg: ArchConfig, p, x, window, *, positions, dtype,
     else:
         a_out, kv = _attn_full(cfg, p, x, window, positions=positions,
                                dtype=dtype, prefix_len=prefix_len,
-                               region=region)
+                               region=region, collect=collect_cache)
         x = x + a_out
         if collect_cache:
             cache.update(k=kv[0], v=kv[1])
@@ -279,10 +403,10 @@ def block_decode(cfg: ArchConfig, p, x, cache, cur_index: int, window, *,
     if cfg.parallel_ssm:
         a_out, cache = _attn_decode(cfg, p, x, cache, cur_index, window,
                                     dtype=dtype, region=region)
-        s_out = _ssm_decode(cfg, p, x, cache, dtype=dtype)
+        s_out = _ssm_decode(cfg, p, x, cache, dtype=dtype, region=region)
         x = x + 0.5 * (a_out + s_out)
     elif cfg.has_ssm:
-        x = x + _ssm_decode(cfg, p, x, cache, dtype=dtype)
+        x = x + _ssm_decode(cfg, p, x, cache, dtype=dtype, region=region)
     else:
         a_out, cache = _attn_decode(cfg, p, x, cache, cur_index, window,
                                     dtype=dtype, region=region)
@@ -293,12 +417,13 @@ def block_decode(cfg: ArchConfig, p, x, cache, cur_index: int, window, *,
     return x, cache
 
 
-def _ssm_decode(cfg, p, x, cache, *, dtype):
+def _ssm_decode(cfg, p, x, cache, *, dtype, region=None):
     """The SSM mixer's one-token output; its state and conv history are
     written into the layer's cache in place."""
     s_in = _norm_apply(cfg, p["ssm_norm"], x)
-    s_out, st, cv = m2.mamba2_decode(p["ssm"], m2.spec_from_cfg(cfg), s_in,
-                                     cache["ssm"], cache["conv"], dtype=dtype)
+    s_out, st, cv = m2.mamba2_decode(
+        p["ssm"], m2.spec_from_cfg(cfg), s_in, cache["ssm"], cache["conv"],
+        dtype=dtype, **_ssm_projections(cfg, p["ssm"], region, dtype))
     cache["ssm"].copy_(st)
     cache["conv"].copy_(cv)
     return s_out
@@ -349,7 +474,6 @@ class LM:
         from torch.distributed.tensor import DTensor
         if not isinstance(x, DTensor) or self.batch_axes is None:
             return x
-        from repro_torch.dist import spmd
         r = spmd.Region(x.device_mesh, B=x.shape[0],
                         S=x.shape[1] if x.ndim >= 3 else 1,
                         batch_axes=self.batch_axes,
@@ -362,16 +486,20 @@ class LM:
         mesh = _mesh_of(params)
         if mesh is None:
             return None
-        from repro_torch.dist import spmd
         return spmd.Region(mesh, B=B, S=S, batch_axes=self.batch_axes,
                            seq_axis=self.act_seq_axis,
-                           moe_axes=self.moe_dispatch_axes)
+                           moe_axes=self.moe_dispatch_axes,
+                           tp_axis=None if self.zero3_layer
+                           else TP_AXIS)
 
     def _gather_top(self, params, region):
-        """The non-layer parameters, gathered whole."""
+        """The non-layer parameters, gathered over their FSDP axes (a tp
+        feature shard stays local)."""
         from repro_torch.dist.sharding import gather_replicated
-        return {k: (v if k == "layers" else _tree_map(gather_replicated, v))
-                for k, v in params.items()}
+        keep = tuple(region.tp_axes)
+        return {k: (v if k == "layers" else _tree_map(
+            lambda t: gather_replicated(t, keep=keep), v))
+            for k, v in params.items()}
 
     def _layer_shards(self, stacked) -> list:
         """The L layers of a stacked tree of DTensors: each leaf's local
@@ -401,9 +529,10 @@ class LM:
                 for i in range(L)]
 
     def _gather_layer(self, lp, region):
-        """One layer's weights gathered whole (`explicit_gather`); with
-        the shard-local MoE dispatch the expert stacks stay DTensors for
-        `moe_apply`, which keeps their d_ff slices."""
+        """One layer's weights gathered over their FSDP axes
+        (`explicit_gather`): on the tp layout each keeps its feature
+        shard over the tp axes; under zero3_layer (no tp axes) they are
+        gathered whole."""
         from repro_torch.dist.sharding import gather_replicated, placements
         if self.zero3_layer:
             if self.layer_param_specs is None:
@@ -414,10 +543,8 @@ class LM:
                 if tuple(t.placements) != want:
                     raise ValueError(f"layer leaf {path}: at rest "
                                      f"{t.placements}, specs say {want}")
-        keep = {"w_gate", "w_up", "w_down"} if region.moe_axes else set()
-        return _tree_map_path(
-            lambda path, t: t if len(path) > 1 and path[-2] == "moe"
-            and path[-1] in keep else gather_replicated(t), lp)
+        keep = tuple(region.tp_axes)
+        return _tree_map(lambda t: gather_replicated(t, keep=keep), lp)
 
     # ------------------------------------------------------------------ init
     def _tree(self, gen, device) -> dict:
@@ -506,31 +633,52 @@ class LM:
                    for k in caches[0]}
 
     def _embed_inputs(self, params, batch, region=None):
-        """Returns (x [B,S,d], positions [S], prefix_len). On the mesh
-        path x is the rank's tokens [B_local, S_local, d] and positions
-        their global positions."""
+        """Returns (x [B, S, d], positions [S], prefix_len). On the mesh
+        path x is the rank's tokens [B_local, S_chunk, d] and the
+        positions are the whole sequence's (the blocks gather their
+        inputs along S). The frontends are column-parallel (their d_model
+        columns gathered over the tp axes); the token lookup is
+        vocab-parallel, its partial sums reduced over the tp axes
+        (reduce-scattered along S under sequence parallelism); `region`
+        None is the one-device embedding."""
         cfg = self.cfg
         if region is not None:
-            from repro_torch.dist import spmd
             batch = {k: region.local_batch(v) for k, v in batch.items()}
-            x, positions, prefix = self._embed_inputs(params, batch)
-            x = spmd.shard(x, region.mesh, region.seq_axes, 1)
-            return x, positions[region.s0:region.s1], prefix
+        prefix, split = 0, False
         if cfg.frontend == "frames":
-            x = nn.linear_apply(params["frontend"], batch["frames"],
-                                dtype=self.dtype)
-            return x, torch.arange(x.shape[1], device=x.device), 0
-        if cfg.frontend == "patches":
-            pe = nn.linear_apply(params["patch_proj"], batch["patches"],
-                                 dtype=self.dtype)
-            te = nn.embedding_apply(params["embed"], batch["tokens"],
-                                    dtype=self.dtype)
-            x = torch.cat([pe, te], dim=1)
-            return x, torch.arange(x.shape[1], device=x.device), \
-                cfg.n_patches
-        x = nn.embedding_apply(params["embed"], batch["tokens"],
-                               dtype=self.dtype)
-        return x, torch.arange(x.shape[1], device=x.device), 0
+            x = _col_whole(params["frontend"], batch["frames"], region,
+                           cfg.d_model, self.dtype)
+        elif cfg.frontend == "patches":
+            pe = _col_whole(params["patch_proj"], batch["patches"], region,
+                            cfg.d_model, self.dtype)
+            te, split = self._lookup(params["embed"], batch["tokens"],
+                                     region)
+            if split:
+                te = spmd.all_reduce(te, region.mesh, region.tp_axes)
+            x, split = torch.cat([pe, te], dim=1), False
+            prefix = cfg.n_patches
+        else:
+            x, split = self._lookup(params["embed"], batch["tokens"],
+                                    region)
+        if region is None:
+            return x, torch.arange(x.shape[1], device=x.device), prefix
+        return region.seq_out(x, partial=split), \
+            torch.arange(region.S, device=x.device), prefix
+
+    def _lookup(self, emb, ids, region):
+        """(token embeddings, split). The table [V, d] may be the rank's
+        vocab shard over the tp axes (split): a token outside its rows
+        gives zeros, so the result is a partial sum over the tp axes."""
+        e = emb["embedding"]
+        if not spmd.is_shard(region, e.shape[0], self.cfg.vocab):
+            return nn.embedding_apply(emb, ids, dtype=self.dtype), False
+        rows = e.shape[0]
+        local = ids.long() - region.tp_rank * rows
+        x = torch.nn.functional.embedding(local.clamp(0, rows - 1),
+                                          e.to(self.dtype))
+        own = ((local >= 0) & (local < rows))[..., None]
+        return torch.where(own, x, torch.zeros((), dtype=x.dtype,
+                                               device=x.device)), True
 
     # ------------------------------------------------------------------ loss
     def _seq_len(self, batch) -> int:
@@ -542,53 +690,66 @@ class LM:
         return batch["tokens"].shape[1]
 
     def loss(self, params, batch) -> torch.Tensor:
-        cfg = self.cfg
+        """The next-token CE (per-frame for "frames"; text positions only
+        for "patches"). On the mesh path each rank computes its share of
+        the loss (its tokens' terms over the global count, over
+        `region.dup`), whose gradient is the rank's partial sum; its value
+        is the global loss (the shares all-reduced)."""
         lead = next(iter(batch.values()))
         region = self._region(params, lead.shape[0], self._seq_len(batch))
-        if region is not None:
-            return self._loss_sharded(params, batch, region)
-        x, positions, prefix = self._embed_inputs(params, batch)
-        h, _ = self._stack(params, x, positions=positions, prefix_len=prefix)
-        labels = batch["labels"]
-        if cfg.frontend == "frames":       # per-frame classification (stub)
-            logits = nn.linear_apply(params["head"], h, dtype=F32)
-            return _ce(logits, labels)
-        if cfg.frontend == "patches":      # loss on text positions only
-            h = h[:, cfg.n_patches:, :]
-        # next-token LM loss, chunked over sequence
-        return chunked_ce_loss(h, params["embed"]["embedding"], labels)
-
-    def _loss_sharded(self, params, batch, region) -> torch.Tensor:
-        """The mesh path's loss: this rank's share of the loss (its
-        tokens' terms over the global count, over `region.dup`), whose
-        gradient is the rank's partial sum; its value is the global loss
-        (the shares all-reduced)."""
-        from repro_torch.dist import spmd
-        cfg = self.cfg
-        top = self._gather_top(params, region)
+        top = params if region is None else self._gather_top(params, region)
         x, positions, prefix = self._embed_inputs(top, batch, region)
-        h, _ = self._stack(top, x, positions=positions,
-                           prefix_len=prefix, region=region)
-        labels = region.local_batch(batch["labels"])   # [B_l, full length]
-        B, b_l = next(iter(batch.values())).shape[0], h.shape[0]
-        s0, s1 = region.s0, region.s1
-        if cfg.frontend == "frames":
-            logits = nn.linear_apply(top["head"], h, dtype=F32)
-            part, n_l, n = _ce(logits, labels[:, s0:s1]), \
-                b_l * (s1 - s0), B * region.S
-        else:
-            P = cfg.n_patches if cfg.frontend == "patches" else 0
-            a = max(s0, P)                   # text positions of the chunk
-            h, lab = h[:, a - s0:], labels[:, a - P:s1 - P]
-            n_l, n = b_l * lab.shape[1], B * labels.shape[1]
-            part = chunked_ce_loss(h, top["embed"]["embedding"], lab) \
-                if lab.shape[1] else h.sum() * 0.0
-        scale = n_l / (n * region.dup)
-        if scale != 1.0:
-            part = part * scale
+        h, _ = self._stack(top, x, positions=positions, prefix_len=prefix,
+                           region=region)
+        part = self._ce_share(top, h, batch["labels"], region,
+                              lead.shape[0])
+        if region is None:
+            return part
         total = spmd.all_reduce(part.detach(), region.mesh,
                                 region.mesh.mesh_dim_names)
         return part + (total - part.detach())
+
+    def _ce_share(self, top, h, labels, region, B: int):
+        """This rank's share of the CE loss over h [B_l, S_chunk, d]. The
+        head is the frames head or the tied embedding, whose logits are
+        taken in bf16 as the reference takes them. When its vocab is the
+        rank's tp shard, h is gathered along S and every position's term
+        is taken vocab-parallel; otherwise the rank takes its own
+        positions' terms with the same `vocab_parallel_ce_terms`, its
+        reductions over no axes (on one device: the whole loss)."""
+        cfg = self.cfg
+        if cfg.frontend == "frames":
+            p = top["head"]
+            split = spmd.is_shard(region, p["kernel"].shape[-1], cfg.vocab)
+            logits = lambda hc: spmd.column_parallel(p, hc, region,
+                                                     cfg.vocab,
+                                                     dtype=F32)[0]
+        else:
+            emb = top["embed"]["embedding"]
+            split = spmd.is_shard(region, emb.shape[0], cfg.vocab)
+            e16 = emb.to(torch.bfloat16)
+            logits = lambda hc: (hc.to(torch.bfloat16) @ e16.T).to(F32)
+        P = cfg.n_patches if cfg.frontend == "patches" else 0
+        S = h.shape[1] if region is None else region.S
+        s0, s1 = (0, S) if region is None else (region.s0, region.s1)
+        if region is not None:
+            labels = region.local_batch(labels)  # [B_l, the text length]
+        mesh, axes, v0 = None, (), 0
+        if split:
+            h, lo = region.seq_in(h), 0          # every position of S
+            mesh, axes = region.mesh, region.tp_axes
+            v0 = region.tp_rank * (cfg.vocab // region.tp_size)
+        else:
+            lo = s0                              # the rank's own chunk
+        a = max(lo, P)                           # its text positions
+        lab = labels[:, a - P:lo + h.shape[1] - P]
+        if not lab.shape[1]:                     # a chunk of patches only
+            return h.sum() * 0.0
+        terms = vocab_parallel_ce_terms(logits, h[:, a - lo:], lab, mesh,
+                                        axes, v0)
+        own = terms[:, max(s0, P) - a:max(s1, P) - a]
+        dup = 1 if region is None else region.dup
+        return own.sum() / (B * labels.shape[1] * dup)
 
     # --------------------------------------------------------------- prefill
     def prefill(self, params, batch):
@@ -610,7 +771,7 @@ class LM:
 
     def _prefill_sharded(self, params, batch, region):
         from torch.distributed.tensor import DTensor
-        from repro_torch.dist import spmd
+
         from repro_torch.dist.sharding import _contiguous_stride
         top = self._gather_top(params, region)
         x, positions, prefix = self._embed_inputs(top, batch, region)
@@ -620,7 +781,7 @@ class LM:
         # the last position lives on the last sequence rank
         last = spmd.gather(h[:, -1:, :], region.mesh, region.seq_axes,
                            1)[:, -1:, :].contiguous()
-        logits = self._head(top, last)
+        logits = self._head(top, last, region)
         B = next(iter(batch.values())).shape[0]
         out = {}
         for k, c in caches.items():
@@ -636,11 +797,18 @@ class LM:
         return region.global_out(logits, (B,) + tuple(logits.shape[1:])), \
             out
 
-    def _head(self, params, h):
+    def _head(self, params, h, region=None):
+        """The logits [.., vocab] (fp32). On the mesh path a head whose
+        vocab is the rank's tp shard gives its slice of the logits, and
+        the slices are gathered over the tp axes."""
         if self.cfg.frontend == "frames":
-            return nn.linear_apply(params["head"], h, dtype=F32)
-        emb = params["embed"]["embedding"].to(self.dtype)
-        return (h.to(self.dtype) @ emb.T).to(F32)
+            y, split = spmd.column_parallel(params["head"], h, region,
+                                            self.cfg.vocab, dtype=F32)
+        else:
+            emb = params["embed"]["embedding"]
+            split = spmd.is_shard(region, emb.shape[0], self.cfg.vocab)
+            y = (h.to(self.dtype) @ emb.to(self.dtype).T).to(F32)
+        return region.tp_gather(y, split) if split else y
 
     # ---------------------------------------------------------------- decode
     def decode_step(self, params, cache, token, cur_index: int):
@@ -671,15 +839,16 @@ class LM:
             region.cache_layout(cache["k"])
         local = _tree_map(to_local, cache)
         top = self._gather_top(params, region)
-        x = nn.embedding_apply(top["embed"], region.local_batch(token),
-                               dtype=self.dtype)
+        x, split = self._lookup(top["embed"], region.local_batch(token),
+                                region)
+        x = region.seq_out(x, partial=split)
         layers = self._layer_shards(params["layers"])
         for i, w in enumerate(self._windows()):
             x, _ = block_decode(cfg, self._gather_layer(layers[i], region),
                                 x, _layer(local, i), cur_index, w,
                                 dtype=self.dtype, region=region)
         x = _norm_apply(cfg, top["final_norm"], x)
-        logits = self._head(top, x)
+        logits = self._head(top, x, region)
         return region.global_out(logits, (token.shape[0],)
                                  + tuple(logits.shape[1:])), cache
 
@@ -722,13 +891,6 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _tree_map_path(fn, tree, path=()):
-    if isinstance(tree, dict):
-        return {k: _tree_map_path(fn, v, path + (k,))
-                for k, v in tree.items()}
-    return fn(path, tree)
-
-
 def _paths(tree, path=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -756,28 +918,46 @@ def chunked_ce_loss(h: torch.Tensor, embedding: torch.Tensor,
                     labels: torch.Tensor, *, chunk: int = 512
                     ) -> torch.Tensor:
     """CE(h @ E^T, labels) without materializing [B, S, V]; the logits are
-    taken in bf16, as the reference takes them. Each chunk's logits are
-    recomputed in the backward pass, as the reference's per-chunk
-    `jax.checkpoint(nothing_saveable)` does, so autograd keeps no
-    [B, chunk, V] tensor."""
-    B, S, d = h.shape
+    taken in bf16, as the reference takes them: the value `LM.loss`
+    takes for a tied-embedding LM on one device."""
+    emb = embedding.to(torch.bfloat16)
+    terms = vocab_parallel_ce_terms(
+        lambda hc: (hc.to(torch.bfloat16) @ emb.T).to(F32), h, labels,
+        chunk=chunk)
+    return terms.sum() / terms.numel()
+
+
+def vocab_parallel_ce_terms(logits_fn, h: torch.Tensor, labels: torch.Tensor,
+                            mesh=None, axes=(), v0: int = 0, *,
+                            chunk: int = 512) -> torch.Tensor:
+    """Per-position CE terms [B, S] (fp32) of logits whose vocab may be
+    sharded over the mesh `axes`: `logits_fn(hc)` is this rank's slice
+    [B, c, V_local] (vocab rows v0 ...) of the logits of hc. The
+    logsumexp takes its max and its sum over the ranks by all-reduce; the
+    label's logit comes from the rank that holds it (no axes: the whole
+    vocab, and the all-reduces are the identity). Chunked over S so that
+    no [B, S, V] tensor exists; each chunk's logits are recomputed in the
+    backward pass, as the reference's per-chunk
+    `jax.checkpoint(nothing_saveable)` does."""
+    S = h.shape[1]
     chunk = min(chunk, S)
     while S % chunk:        # e.g. vlm text length 3840 → chunk 256
         chunk //= 2
-    emb = embedding.to(torch.bfloat16)
 
     def one(hc, lc):
-        logits = (hc.to(torch.bfloat16) @ emb.T).to(F32)
-        logp = torch.log_softmax(logits, dim=-1)
-        return -torch.sum(torch.gather(logp, -1, lc.long()[..., None]))
+        z = logits_fn(hc)
+        m = spmd.all_reduce(torch.amax(z.detach(), -1, keepdim=True), mesh,
+                            axes, "max")
+        tot = spmd.all_reduce(torch.sum(torch.exp(z - m), -1), mesh, axes)
+        loc = lc.long() - v0
+        own = (loc >= 0) & (loc < z.shape[-1])
+        zl = torch.gather(z, -1, loc.clamp(0, z.shape[-1] - 1)[..., None])
+        zl = spmd.all_reduce(torch.where(own, zl[..., 0], 0.0), mesh, axes)
+        return torch.log(tot) + m[..., 0] - zl
 
-    total = None
-    for c0 in range(0, S, chunk):
-        part = torch.utils.checkpoint.checkpoint(
-            one, h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
-            use_reentrant=False)
-        total = part if total is None else total + part
-    return total / (B * S)
+    return torch.cat([torch.utils.checkpoint.checkpoint(
+        one, h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+        use_reentrant=False) for c0 in range(0, S, chunk)], dim=1)
 
 
 # ---------------------------------------------------------------- weights

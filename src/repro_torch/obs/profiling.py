@@ -11,8 +11,12 @@ something in it synchronises (the sequential engine's payload pull does).
 `torch.profiler.record_function` when profiling is switched on
 (`set_profiling(True)` or REPRO_PROFILE=1 in the environment), so a
 `torch.profiler.profile()` capture shows the local-round and compressor
-dispatches as named regions. When profiling is off it returns a shared
-null context — one module-level predicate per call, no allocation.
+dispatches as named regions; with CUDA available it also opens an NVTX
+range of the same name (`torch.cuda.nvtx`), so Nsight Systems shows the
+same regions (the counterpart of the reference's
+`jax.profiler.TraceAnnotation`). When profiling is off it returns a
+shared null context — one module-level predicate per call, no
+allocation.
 
 `device_profile()` and `device_breakdown(prof, wall_s)` are the launch
 profilers' shared capture and summary: device-busy seconds, the idle
@@ -42,12 +46,22 @@ def profiling_enabled() -> bool:
 
 
 def annotate(name: str):
-    """Context manager: a `torch.profiler.record_function(name)` region
-    when profiling is enabled, else a shared no-op context."""
+    """Context manager: a `torch.profiler.record_function(name)` region,
+    and an NVTX range of that name when CUDA is available, when profiling
+    is enabled; else a shared no-op context."""
     if not _PROFILE:
         return _NULL_CTX
     import torch
-    return torch.profiler.record_function(name)
+    if not torch.cuda.is_available():
+        return torch.profiler.record_function(name)
+    return _nvtx_region(name)
+
+
+@contextlib.contextmanager
+def _nvtx_region(name: str):
+    import torch
+    with torch.cuda.nvtx.range(name), torch.profiler.record_function(name):
+        yield
 
 
 def device_profile():

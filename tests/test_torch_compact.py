@@ -1,7 +1,9 @@
 """The port's `compact_blocks` (on the CPU, its plain version) and the ops
 built on it against the JAX package: `compact_blocks(..., interpret=True)`
 bit for bit on the reference's sweep (tests/test_kernels.py), the scatter
-rebuild property, `compact_shard_topk` and `topk_compress_sparse`."""
+rebuild property, `compact_shard_topk` and `topk_compress_sparse`; and
+`kernels._common.kernel_op`, which registers each wrapper's op, keeping a
+second copy of the wrappers off the first copy's op name."""
 import types
 
 import numpy as np
@@ -239,3 +241,21 @@ class TestKernelPaths:
         assert args[1:3] == (5, 2048) and args[4] == 10 and args[-1] == 11
         assert args[5:9] == tuple(o.data_ptr() for o in outs)
         assert ct_mod.compact_blocks.launches == before + (0 if err else 1)
+
+
+def test_kernel_op_skips_a_taken_name():
+    """A second registration of a kernel's op (another tree's copy of the
+    wrappers) takes a suffixed name and leaves the first op's
+    implementation in place."""
+    from repro_torch.kernels._common import kernel_op
+
+    def one(x: torch.Tensor) -> torch.Tensor:
+        return x + 1
+
+    def two(x: torch.Tensor) -> torch.Tensor:
+        return x + 2
+
+    a = kernel_op("kernel_op_twice", one, torch.empty_like)
+    b = kernel_op("kernel_op_twice", two, torch.empty_like)
+    x = torch.zeros(3)
+    assert torch.equal(a(x), x + 1) and torch.equal(b(x), x + 2)

@@ -10,9 +10,16 @@ mesh, batch over both axes), sequence parallelism (`act_seq_axis`) and
 `microbatches=4`; qwen3-moe smoke with the shard-local MoE dispatch
 (`moe_dispatch_axes`) at capacity factor 2 (capacity covers every slot of
 a shard, so nothing drops) and at its own 1.25; one gemma3 smoke decode
-step on a cache sequence-sharded over `model`, compute and int8. The
-reference side runs as tests/test_dist.py runs it: one subprocess with 8
-XLA host devices.
+step on a cache sequence-sharded over `model`, compute and int8. With
+the tp layout's params these run tensor-parallel over `model`. The tensor-parallel cases (`TP_CASES`, `PREFILL_CASES`) are
+held against the reference's GSPMD step on the same jax mesh: mamba2
+(in_proj gathered), qwen3-moe with the global dispatch, paligemma
+(patches, 1 KV head), hubert (the frames head), stablelm as MHA (each
+rank its own KV heads) and with 4 q heads over a (1, 8) mesh (split
+heads), hymba (attention and SSM heads in one block); prefill with
+gathered and with own KV heads; decode with split heads and of the SSM.
+The reference side runs as tests/test_dist.py runs it: one subprocess
+with 8 XLA host devices.
 
 Tolerances: the sharded loss against the reference's unsharded step at
 rtol 2e-4 (tests/test_dist.py's); the stepped params at rtol 1e-4 / atol
@@ -23,9 +30,14 @@ bf16, so a batch split changes what is rounded; in the port the tied
 embedding's gradient moves most, as each rank sums its chunks' bf16
 gradient before the ranks sum in fp32); `microbatches=4` against the full
 batch at rtol 1e-5 (loss) and rtol 1e-4 / atol 1e-6 (params),
-tests/test_dist.py's; decode logits at
-`LOGITS_TOL`, int8 logits against the reference at atol 1e-2
-(tests/test_torch_lm_decode.py says why).
+tests/test_dist.py's; decode logits at `LOGITS_TOL`, the cache at rtol
+1e-5 / atol 1e-6 (every slot but the one written bitwise), int8 logits
+against the reference at atol 1e-2
+(tests/test_torch_lm_decode.py says why). The tensor-parallel cases: the
+loss at rtol 2e-4, the gradient and the update the step applied (−lr·g
+from the same weights) per leaf at SHARD_GRAD_TOL, prefill logits and
+cache and decode logits at `LOGITS_TOL`; their row-parallel partial sums
+are added in another order than one matmul's, as the reference's are.
 """
 import dataclasses
 import os
@@ -73,7 +85,8 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.configs import get_config
 from repro.core import compression as C
 from repro.dist import sharding as shl
-from repro.dist.steps import make_train_step
+from repro.dist.steps import (make_decode_step, make_prefill_step,
+                              make_train_step)
 from repro.models.transformer import LM
 from repro.optim import momentum_sgd
 
@@ -91,20 +104,24 @@ def tree(prefix):
             node[path[-1]] = jnp.asarray(v)
     return t
 
-batch = tree("batch")
 opt = momentum_sgd(float(inp["lr"]))
 
-def step(arch, replace, key, mb=1, **lmkw):
+def make_mesh(shape):
+    return jax.make_mesh(shape, ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+def step(arch, replace, key, mb=1, batch_key="batch", shape=(2, 4),
+         **lmkw):
     cfg = dataclasses.replace(get_config(arch).smoke(), **replace)
     lm = LM(cfg, dtype=jnp.float32, remat=True, **lmkw)
     params = tree(key)
+    batch = tree(batch_key)
     st = opt.init(params)
     fn = make_train_step(lm, opt, microbatches=mb)
     if not lmkw:
         p, st, loss = jax.jit(fn)(params, st, batch)
     else:
-        mesh = jax.make_mesh((2, 4), ("data", "model"),
-                             axis_types=(jax.sharding.AxisType.Auto,) * 2)
+        mesh = make_mesh(shape)
         ps = shl.param_specs(params, mesh)
         os_ = shl.opt_state_specs(jax.eval_shape(lambda: st), ps, mesh)
         bs = shl.batch_specs(batch, mesh, batch_axes=("data",))
@@ -120,7 +137,7 @@ def step(arch, replace, key, mb=1, **lmkw):
 
 out["dense_loss"], out["dense_params"], out["dense_grad"] = step(
     %(dense)r, %(dense_kw)r, "params")
-out["dense_sh_loss"], _, out["dense_sh_grad"] = step(
+out["dense_sh_loss"], out["dense_sh_params"], out["dense_sh_grad"] = step(
     %(dense)r, %(dense_kw)r, "params", batch_axes=("data",))
 out["mb_loss"], out["mb_params"], out["mb_grad"] = step(
     %(dense)r, %(dense_kw)r, "params", mb=4)
@@ -137,9 +154,52 @@ for kv in ("compute", "int8"):
                                         jnp.asarray(inp["token"], jnp.int32),
                                         jnp.int32(int(inp["cur_index"])))
     out["dec_%%s_logits" %% kv] = np.asarray(logits)
+
+# tensor parallelism over `model`, sequence parallelism for train/prefill
+sp = dict(batch_axes=("data",), act_seq_axis="model")
+out["tp_dense_loss"], out["tp_dense_params"], out["tp_dense_grad"] = step(
+    %(dense)r, %(dense_kw)r, "params", **sp)
+for name, (arch, replace, shape) in %(tp)r.items():
+    out[name + "_loss"], out[name + "_params"], out[name + "_grad"] = step(
+        arch, replace, name + "_params", batch_key=name + "_batch",
+        shape=tuple(shape), **sp)
+ns = lambda t, mesh: shl.named(t, mesh)
+mesh = make_mesh((2, 4))
+pb = tree("pre_batch")
+for name, (arch, replace, key) in %(pre)r.items():
+    lm = LM(dataclasses.replace(get_config(arch).smoke(), **replace),
+            dtype=jnp.float32, remat=False, **sp)
+    params = tree(key)
+    with jax.set_mesh(mesh):
+        logits, cache = jax.jit(make_prefill_step(lm), in_shardings=(
+            ns(shl.param_specs(params, mesh), mesh),
+            ns(shl.batch_specs(pb, mesh, batch_axes=("data",)), mesh)))(
+                params, pb)
+    out[name + "_logits"] = np.asarray(logits)
+    for k, v in cache.items():
+        out[f"{name}_cache/{k}"] = np.asarray(v)
+scfg = dataclasses.replace(get_config("mamba2-780m").smoke(),
+                           **%(tp)r["tp_ssm"][1])
+for name, c, shape, key, cache_key, tok in (
+        ("dec_split", cfg, (1, 8), "dec_params", "cache_compute", "token"),
+        ("dec_ssm", scfg, (2, 4), "tp_ssm_params", "ssm_cache",
+         "ssm_token")):
+    mesh = make_mesh(shape)
+    lm = LM(c, dtype=jnp.float32, remat=False, batch_axes=("data",))
+    params, cache = tree(key), tree(cache_key)
+    token = jnp.asarray(inp[tok], jnp.int32)
+    with jax.set_mesh(mesh):
+        logits, _ = jax.jit(make_decode_step(lm), in_shardings=(
+            ns(shl.param_specs(params, mesh), mesh),
+            ns(shl.cache_specs(cache, mesh, batch_axes=("data",)), mesh),
+            ns(shl.batch_specs({"t": token}, mesh,
+                               batch_axes=("data",))["t"], mesh),
+            NamedSharding(mesh, P())))(params, cache, token,
+                                       jnp.int32(int(inp["cur_index"])))
+    out[name + "_logits"] = np.asarray(logits)
 np.savez(sys.argv[2], **out)
 """ % dict(dense=DENSE[0], dense_kw=DENSE[1], moe=MOE[0], moe_kw=MOE[1],
-           dec=DEC[0], dec_kw=DEC[1])
+           dec=DEC[0], dec_kw=DEC[1], tp=D.TP_CASES, pre=D.PREFILL_CASES)
 
 
 def _flat_keys(tree, prefix) -> dict:
@@ -167,6 +227,20 @@ def inputs():
                           "moe_params"))
     inp.update(_flat_keys(U.numpy_params(_jmodel(*DEC), seed=3),
                           "dec_params"))
+    for i, (name, (arch, replace, _)) in enumerate(D.TP_CASES.items()):
+        jlm = _jmodel(arch, replace)
+        inp.update(_flat_keys(U.numpy_params(jlm, seed=10 + i),
+                              name + "_params"))
+        inp.update({f"{name}_batch/{k}": v for k, v in U.batch(
+            jlm.cfg, B=B, S=S, seed=10 + i).items()})
+    inp["pre_batch/tokens"] = rng.randint(0, 128, (DEC_B, DEC_S)).astype(
+        np.int32)
+    inp["ssm_token"] = rng.randint(0, 256, (DEC_B, 1))
+    ssm = _jmodel(*D.TP_CASES["tp_ssm"][:2]).cache_specs(DEC_B, DEC_S)
+    for k, sd in ssm.items():
+        inp["ssm_cache/" + k] = (rng.randn(*sd.shape)
+                                 * (0.1 if k == "ssm" else 1.0)
+                                 ).astype(np.float32)
     for kv in ("compute", "int8"):
         shapes = _jmodel(*DEC, kv_dtype=kv).cache_specs(DEC_B, DEC_S)
         for k, sd in shapes.items():
@@ -364,8 +438,66 @@ def test_decode_with_sequence_sharded_cache(port_out, jax_out, inputs, kv):
     got = port_out[f"dec_{kv}_logits"]
     np.testing.assert_allclose(got, logits.numpy(), **U.LOGITS_TOL)
     for k, v in cache.items():
-        np.testing.assert_allclose(port_out[f"dec_{kv}_cache/{k}"],
-                                   v.numpy(), rtol=1e-5, atol=1e-6)
+        mine, want = port_out[f"dec_{kv}_cache/{k}"], v.numpy()
+        np.testing.assert_allclose(mine, want, rtol=1e-5, atol=1e-6)
+        # every position but the one written is untouched
+        rest = np.arange(DEC_S) != CUR
+        np.testing.assert_array_equal(mine[:, :, rest], want[:, :, rest])
     np.testing.assert_allclose(got, jax_out[f"dec_{kv}_logits"],
                                **(U.LOGITS_TOL if kv == "compute"
                                   else INT8_TOL))
+
+
+# the port's tensor-parallel steps against the reference's GSPMD steps on
+# the same jax mesh
+# (port case, reference case, weights, arch, config change)
+TP_PAIRS = [("dense", "dense_sh", "params") + DENSE,
+            ("seq", "tp_dense", "params") + DENSE] + [
+    (name, name, name + "_params", arch, replace)
+    for name, (arch, replace, _) in D.TP_CASES.items()]
+
+
+@pytest.mark.parametrize("case,ref,key,arch,replace", TP_PAIRS,
+                         ids=[p[0] for p in TP_PAIRS])
+def test_tensor_parallel_step_matches_reference_gspmd(port_out, jax_out,
+                                                      inputs, case, ref,
+                                                      key, arch, replace):
+    """Dense (whole q heads, KV gathered), split heads on (1, 8), SSM,
+    MoE with the global dispatch, vlm (patches, 1 KV head), audio (the
+    frames head), with and without sequence parallelism."""
+    np.testing.assert_allclose(float(port_out[case + "_loss"]),
+                               float(jax_out[ref + "_loss"]), rtol=2e-4)
+    spec = _spec(arch, replace)
+    U.assert_grads_close(port_out[case + "_grad"], jax_out[ref + "_grad"],
+                         spec, SHARD_GRAD_TOL)
+    # the update the step applied (-lr·g from the same weights), held as
+    # the gradient is
+    p0 = D.flat_numpy(_tree(inputs, key))
+    U.assert_grads_close((p0 - port_out[case + "_params"]) / LR,
+                         (p0 - jax_out[ref + "_params"]) / LR, spec,
+                         SHARD_GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", list(D.PREFILL_CASES))
+def test_tensor_parallel_prefill_matches_reference_gspmd(port_out, jax_out,
+                                                         case):
+    """Prefill with sequence parallelism: the last logits, and the cache
+    handed over to the decode layout (S over `model`, every KV head) from
+    gathered KV (gemma3: 2 KV heads over 4 ranks) and from the ranks' own
+    KV heads (MHA)."""
+    assert int(port_out[case + "_local_s"]) == DEC_S // 4
+    np.testing.assert_allclose(port_out[case + "_logits"],
+                               jax_out[case + "_logits"], **U.LOGITS_TOL)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(port_out[f"{case}_cache/{k}"],
+                                   jax_out[f"{case}_cache/{k}"],
+                                   **U.LOGITS_TOL)
+
+
+@pytest.mark.parametrize("case", ["dec_split", "dec_ssm"])
+def test_tensor_parallel_decode_matches_reference_gspmd(port_out, jax_out,
+                                                        case):
+    """Decode with split heads (gemma3 smoke, 4 q heads over 8 ranks) and
+    of the SSM (mamba2 smoke: in_proj gathered, out_proj row-parallel)."""
+    np.testing.assert_allclose(port_out[case + "_logits"],
+                               jax_out[case + "_logits"], **U.LOGITS_TOL)

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of `repro_torch`, and not
-`chip_smoke.py`, imports `jax` or the reference package `repro` — checked
-on the source (every import statement, also inside functions) and by
-importing every module of the port in a fresh interpreter."""
+"""The port stands alone: no module of `repro_torch`, not `chip_smoke.py`
+and no `examples/torch_*.py` imports `jax` or the reference package
+`repro` — checked on the source (every import statement, also inside
+functions) and by importing every module of the port in a fresh
+interpreter."""
 import ast
 import os
 import pkgutil
@@ -23,6 +24,10 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    ex = os.path.join(ROOT, "examples")
+    for f in sorted(os.listdir(ex)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(ex, f)
 
 
 def _imported(path):

@@ -171,6 +171,31 @@ def test_flash_attention_matches_references(window, prefix, causal):
         assert np.abs(full - out).max() > 1e-2
 
 
+@pytest.mark.parametrize("window,prefix", [(TA.FULL_WINDOW, 0), (16, 0),
+                                           (TA.FULL_WINDOW, 24)])
+def test_flash_attention_in_query_chunks_matches_reference(
+        monkeypatch, window, prefix):
+    """Past MASK_ELEMS mask entries the queries run in chunks (at 1/4 of
+    the mask here: chunks of 32 of 128 queries), each at its offset."""
+    rng = np.random.RandomState(2)
+    q = rng.randn(2, 128, 4, 16).astype(np.float32)
+    k = rng.randn(2, 128, 2, 16).astype(np.float32)
+    v = rng.randn(2, 128, 2, 16).astype(np.float32)
+    kw = dict(causal=True, window=window, prefix_len=prefix)
+    whole = TA.flash_attention(_t(q), _t(k), _t(v), **kw).numpy()
+    monkeypatch.setattr(TA, "MASK_ELEMS", 128 * 128 // 4)
+    calls = []
+    real = TA.F.scaled_dot_product_attention
+    monkeypatch.setattr(TA.F, "scaled_dot_product_attention",
+                        lambda qh, *a, **k: calls.append(qh.shape[2]) or
+                        real(qh, *a, **k))
+    out = TA.flash_attention(_t(q), _t(k), _t(v), **kw).numpy()
+    assert calls == [32] * 4
+    ref = np.asarray(JA.reference_attention(q, k, v, **kw))
+    np.testing.assert_allclose(out, ref, **TOL)
+    np.testing.assert_allclose(out, whole, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("window", [None, 16])
 @pytest.mark.parametrize("cache", ["f32", "int8"])
 def test_decode_attention_matches_reference(cache, window):

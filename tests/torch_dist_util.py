@@ -63,7 +63,7 @@ def flat_numpy(tree) -> np.ndarray:
 
 # ------------------------------------------------------ LM steps on a mesh
 def _lm_step(inp, arch, mesh, lmkw, *, layout="tp", microbatches=1,
-             zero3=None, replace=None, seed_key="params"):
+             zero3=None, replace=None, seed_key="params", batch_key="batch"):
     from repro_torch.configs import get_config
     from repro_torch.dist import sharding as shl
     from repro_torch.dist import steps
@@ -82,7 +82,7 @@ def _lm_step(inp, arch, mesh, lmkw, *, layout="tp", microbatches=1,
     else:
         pspec = shl.param_specs(params, mesh)
     dparams = shl.distribute(params, pspec, mesh)
-    batch = tree_from(inp, "batch")
+    batch = tree_from(inp, batch_key)
     bspec = shl.batch_specs(batch, mesh, batch_axes=lm.batch_axes)
     opt = momentum_sgd(float(inp["lr"]))
     state = opt.init(dparams)
@@ -202,6 +202,80 @@ def train_cases(inp: dict) -> dict:
     finally:
         moe.route = real_route
     out.update(decode_cases(inp, mesh))
+    out.update(tp_cases(inp, mesh))
+    return out
+
+
+# The tensor-parallel cases: name -> (arch, config change, (data, model)
+# mesh). Each runs a train step with batch over `data` and sequence
+# parallelism over `model`, from "<name>_params" on "<name>_batch".
+SP = dict(batch_axes=("data",), act_seq_axis="model")
+TP_CASES = {
+    "tp_ssm": ("mamba2-780m", dict(vocab=256, n_layers=2), (2, 4)),
+    "tp_moe": ("qwen3-moe-30b-a3b", dict(vocab=256, n_layers=2), (2, 4)),
+    "tp_vlm": ("paligemma-3b", dict(vocab=256, n_layers=2), (2, 4)),
+    "tp_audio": ("hubert-xlarge", dict(vocab=256, n_layers=2), (2, 4)),
+    "tp_split": ("stablelm-3b", dict(vocab=256, n_layers=2), (1, 8)),
+    "tp_mha": ("stablelm-3b", dict(vocab=256, n_layers=2, n_kv_heads=4),
+               (2, 4)),
+    "tp_hybrid": ("hymba-1.5b", dict(vocab=256, n_layers=2), (2, 4)),
+}
+# prefill cases on the (2, 4) mesh: name -> (arch, config change, weights)
+PREFILL_CASES = {
+    "pre": ("gemma3-4b", dict(vocab=128, n_layers=2), "dec_params"),
+    "pre_mha": TP_CASES["tp_mha"][:2] + ("tp_mha_params",),
+}
+
+
+def tp_cases(inp: dict, mesh) -> dict:
+    """The tensor-parallel train steps of TP_CASES, the prefills of
+    PREFILL_CASES (logits and cache), and decode of the gemma3 smoke
+    config with split heads on a (1, 8) mesh and of mamba2 on the (2, 4)
+    mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shl
+    from repro_torch.dist import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as TT
+    meshes = {(2, 4): mesh, (1, 8): make_local_mesh(1, 8, device_type="cpu")}
+    out = {}
+    for name, (arch, replace, shape) in TP_CASES.items():
+        out[name + "_loss"], out[name + "_params"], out[name + "_grad"] = \
+            _lm_step(inp, arch, meshes[shape], SP, replace=replace,
+                     seed_key=name + "_params", batch_key=name + "_batch")
+    # prefill: KV gathered for the cache (gemma3), and the ranks' own KV
+    # heads gathered for it (MHA)
+    for name, (arch, replace, key) in PREFILL_CASES.items():
+        c = dataclasses.replace(get_config(arch).smoke(), **replace)
+        p = TT.params_from_jax(_numpy_tree(inp, key))
+        lm = TT.LM(c, dtype=torch.float32, remat=False, **SP)
+        batch = tree_from(inp, "pre_batch")
+        logits, cache = steps.make_prefill_step(lm)(
+            shl.distribute(p, shl.param_specs(p, mesh), mesh),
+            shl.distribute(batch, shl.batch_specs(batch, mesh), mesh))
+        out[name + "_logits"] = logits.full_tensor().numpy()
+        out[name + "_local_s"] = np.asarray(cache["k"].to_local().shape[2])
+        for k, v in cache.items():
+            out[f"{name}_cache/{k}"] = v.full_tensor().numpy()
+    cfg = dataclasses.replace(get_config("gemma3-4b").smoke(), vocab=128,
+                              n_layers=2)
+    # decode: split heads (4 q heads over 8 ranks), and the SSM
+    scfg = dataclasses.replace(get_config("mamba2-780m").smoke(),
+                               **TP_CASES["tp_ssm"][1])
+    for name, c, m, key, cache_key, tok in (
+            ("dec_split", cfg, meshes[(1, 8)], "dec_params", "cache_compute",
+             "token"),
+            ("dec_ssm", scfg, mesh, "tp_ssm_params", "ssm_cache",
+             "ssm_token")):
+        lm = TT.LM(c, dtype=torch.float32, remat=False, batch_axes=("data",))
+        p = TT.params_from_jax(_numpy_tree(inp, key))
+        cache = tree_from(inp, cache_key)
+        logits, _ = steps.make_decode_step(lm)(
+            shl.distribute(p, shl.param_specs(p, m), m),
+            shl.distribute(cache, shl.cache_specs(cache, m,
+                                                  batch_axes=("data",)), m),
+            torch.from_numpy(inp[tok]), int(inp["cur_index"]))
+        out[name + "_logits"] = logits.full_tensor().numpy()
     return out
 
 
@@ -294,3 +368,59 @@ def pod_cases(inp: dict) -> dict:
     out["round_bits"] = np.asarray(step.wire_bits_per_pod)
     return out
 
+
+
+# ------------------------------------------------ batches placed on a mesh
+class _Rows:
+    """A dataset whose batch is its rows (an int matrix, a float vector)
+    and a 0-d scale."""
+
+    def __init__(self, n: int):
+        self.x = np.arange(n * 3, dtype=np.int64).reshape(n, 3)
+
+    def __len__(self):
+        return len(self.x)
+
+    def batch(self, idx):
+        return {"x": self.x[idx], "w": self.x[idx, 0].astype(np.float32),
+                "scale": np.float32(0.5)}
+
+
+def sharded_batch_case(inp: dict) -> dict:
+    """`data.sharded_batches` on a (data, model) = (2, 1) mesh: `draws`
+    batches; every rank asserts that it holds its own rows of the host
+    batch and the whole scale, and that each local shard equals the
+    reference's shard at its place in the mesh ("ref_<leaf><draw>/<data
+    index>"); rank 0's local rows come back."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.data import DataLoader, sharded_batches
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(2, 1, device_type="cpu")
+    rank = mesh.get_local_rank("data")
+    seed, bs = int(inp["seed"]), int(inp["batch"])
+    host = DataLoader(_Rows(16), batch_size=bs, seed=seed)
+    it = sharded_batches(DataLoader(_Rows(16), batch_size=bs, seed=seed),
+                         mesh)
+    out = {}
+    for i in range(int(inp["draws"])):
+        want, got = host.next(), next(it)
+        rows = slice(rank * bs // 2, (rank + 1) * bs // 2)
+        assert sorted(got) == sorted(want)
+        for k in ("x", "w"):
+            assert got[k].placements == (Shard(0), Replicate()), k
+            assert torch.equal(got[k].to_local(),
+                               torch.from_numpy(want[k][rows])), k
+            assert torch.equal(got[k].full_tensor(),
+                               torch.from_numpy(want[k])), k
+        assert got["scale"].placements == (Replicate(), Replicate())
+        assert float(got["scale"].to_local()) == 0.5
+        for k, v in got.items():
+            # the same values and kind (jax without x64 narrows the int64
+            # rows to int32; the port keeps the host dtype)
+            mine, ref = v.to_local().numpy(), inp[f"ref_{k}{i}/{rank}"]
+            assert mine.dtype.kind == ref.dtype.kind, k
+            assert mine.shape == ref.shape and np.array_equal(mine, ref), k
+        out[f"x{i}"] = got["x"].to_local().numpy()
+        out[f"host{i}"] = want["x"]
+    return out
