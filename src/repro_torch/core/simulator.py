@@ -48,7 +48,6 @@ the key — so the same seed gives the same timeline.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import heapq
 import math
@@ -68,14 +67,10 @@ from repro_torch.core.controller import DeviceProfile, FedLuckController
 from repro_torch.core.factor import Plan
 from repro_torch.dist.steps import batched_local_round, local_round
 from repro_torch.kernels import ops
-from repro_torch.obs import profiling as _prof
 from repro_torch.obs.metrics import STALENESS_BUCKETS
-from repro_torch.obs.profiling import PhaseTimers
+from repro_torch.obs.profiling import PhaseTimers, annotate
 from repro_torch.obs.trace import CONTROLLER_TRACK, SERVER_TRACK, device_track
 from repro_torch.optim import momentum_sgd
-
-# shared no-op phase context for the uninstrumented (timers=None) path
-_NULL_PHASE = contextlib.nullcontext()
 
 # fixed metric bucket grids (no Date/random in hot paths — pure constants)
 _SIZE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
@@ -314,9 +309,9 @@ class AFLSimulator:
             sl.close()
 
     def _phase(self, name: str):
-        """Wall-clock phase context (obs.PhaseTimers) or a shared no-op."""
-        tm = self._timers
-        return tm.phase(name) if tm is not None else _NULL_PHASE
+        """The phase `name`: the span "sim.<name>", timed into the
+        `PhaseTimers` under `name` when the simulator has them."""
+        return annotate("sim." + name, self._timers, name)
 
     def _trace_down(self, did: int, t: float, recovery: float) -> None:
         """Device found down at cycle start: its outage window as a span."""
@@ -404,16 +399,16 @@ class AFLSimulator:
         spec = self.devices[did]
         k = spec.plan.k
         loader = self.loaders[did]
-        batches = [self._to_device(loader.next()) for _ in range(k)]
-        flat = torch.tensor(self.model.w, device=self.device)
-        with _prof.annotate("sim.local_round"):
-            g = self._local_round(flat, batches)
+        with annotate("sim.stage"):
+            batches = [self._to_device(loader.next()) for _ in range(k)]
+            flat = torch.tensor(self.model.w, device=self.device)
+        g = self._local_round(flat, batches)
 
         seed = self.rng.randint(0, 2 ** 31 - 1)   # consumed every cycle
         comp = self._compressor_fn(spec)
         gen = (torch.Generator(device=self.device).manual_seed(int(seed))
                if comp.needs_key else None)
-        with _prof.annotate("sim.compress"):
+        with annotate("sim.compress"):
             if spec.error_feedback:
                 cc, self._residuals[did] = C.ef_compress(
                     comp, g, self._residuals[did], gen)
@@ -513,20 +508,19 @@ class AFLSimulator:
                 return payload, None if res is None else acc - dense, bits
 
         def chunk(flat, res_rows, steps, seeds, krows):
-            with _prof.annotate("sim.local_round"):
-                if P == 1:
-                    # one row batches nothing: the sequential engine's
-                    # autograd round, without vmap's host cost
-                    g = self._local_round(
-                        flat, [{key: v[0] for key, v in step.items()}
-                               for step in steps])[None]
-                else:
-                    g = batched_local_round(
-                        self.task.loss_fn,
-                        momentum_sgd(self.eta_l, self.momentum), flat, spec,
-                        steps)
+            if P == 1:
+                # one row batches nothing: the sequential engine's
+                # autograd round, without vmap's host cost
+                g = self._local_round(
+                    flat, [{key: v[0] for key, v in step.items()}
+                           for step in steps])[None]
+            else:
+                g = batched_local_round(
+                    self.task.loss_fn,
+                    momentum_sgd(self.eta_l, self.momentum), flat, spec,
+                    steps)
             payloads, new_rows, bits = [], [], []
-            with _prof.annotate("sim.compress"):
+            with annotate("sim.compress"):
                 for i in range(P):
                     gen = (torch.Generator(device=dev).manual_seed(
                         int(seeds[i])) if needs_key else None)
@@ -536,12 +530,12 @@ class AFLSimulator:
                     payloads.append(payload)
                     new_rows.append(new_res)
                     bits.append(b)
-            if sparse:
-                payload = (torch.stack([p[0] for p in payloads]),
-                           torch.stack([p[1] for p in payloads]))
-            else:
-                payload = torch.stack(payloads)
-            return payload, torch.stack(new_rows) if ef else None, bits
+                if sparse:
+                    payload = (torch.stack([p[0] for p in payloads]),
+                               torch.stack([p[1] for p in payloads]))
+                else:
+                    payload = torch.stack(payloads)
+                return payload, torch.stack(new_rows) if ef else None, bits
 
         self._bucket_fns[cache_key] = chunk
         return chunk
@@ -737,27 +731,28 @@ class AFLSimulator:
         Two phases, as in the reference: dispatch every chunk of every
         bucket first (the card runs a chunk while the host stacks the next
         one's batches), then pull the payloads."""
-        order = []
-        for t, did, mr, arrive, attempts, corrupt, ch_del in starts:
-            stacked = self._stacked[did].next()
-            seed = self.rng.randint(0, 2 ** 31 - 1)
-            order.append((t, did, mr, stacked, seed))
+        with annotate("sim.draw"):
+            order = []
+            for t, did, mr, arrive, attempts, corrupt, ch_del in starts:
+                stacked = self._stacked[did].next()
+                seed = self.rng.randint(0, 2 ** 31 - 1)
+                order.append((t, did, mr, stacked, seed))
 
-        buckets: dict[tuple, list] = {}
-        for item in order:
-            buckets.setdefault(self._bucket_key(self.devices[item[1]]),
-                               []).append(item)
-        if self._metrics is not None:
-            m = self._metrics
-            m.histogram("engine.drain_size", _SIZE_BUCKETS).observe(
-                len(starts))
-            m.gauge("engine.buckets").set(len(buckets))
-            occ = m.histogram("engine.bucket_occupancy", _SIZE_BUCKETS)
-            for items in buckets.values():
-                occ.observe(len(items))
-        # one host->device model upload per drain: no aggregation lands
-        # inside a drain, so every chunk reads the same global model
-        flat = torch.tensor(self.model.w, device=self.device)
+            buckets: dict[tuple, list] = {}
+            for item in order:
+                buckets.setdefault(self._bucket_key(self.devices[item[1]]),
+                                   []).append(item)
+            if self._metrics is not None:
+                m = self._metrics
+                m.histogram("engine.drain_size", _SIZE_BUCKETS).observe(
+                    len(starts))
+                m.gauge("engine.buckets").set(len(buckets))
+                occ = m.histogram("engine.bucket_occupancy", _SIZE_BUCKETS)
+                for items in buckets.values():
+                    occ.observe(len(items))
+            # one host->device model upload per drain: no aggregation lands
+            # inside a drain, so every chunk reads the same global model
+            flat = torch.tensor(self.model.w, device=self.device)
         pending = []
         chunk_hist = (self._metrics.histogram("engine.chunk_size",
                                               _SIZE_BUCKETS)
@@ -776,16 +771,17 @@ class AFLSimulator:
             for rec in pending:
                 self._collect_chunk(rec, results)
 
-        for t, did, mr, arrive, attempts, corrupt, ch_del in starts:
-            update, bits = results[did]
-            if self.channel is not None and ch_del is not None:
-                self.channel.charge_wire(bits, attempts, ch_del)
-            if arrive is None:
-                continue   # upload lost; compute ran, restart already queued
-            if corrupt:
-                update = self._poison(update)
-            push(arrive, "arrival", Arrival(did, update, mr, bits * attempts,
-                                            arrive))
+        with annotate("sim.schedule"):
+            for t, did, mr, arrive, attempts, corrupt, ch_del in starts:
+                update, bits = results[did]
+                if self.channel is not None and ch_del is not None:
+                    self.channel.charge_wire(bits, attempts, ch_del)
+                if arrive is None:
+                    continue   # upload lost; compute ran, restart queued
+                if corrupt:
+                    update = self._poison(update)
+                push(arrive, "arrival",
+                     Arrival(did, update, mr, bits * attempts, arrive))
 
     def _dispatch_chunk(self, bkey: tuple, items: list, flat: torch.Tensor):
         """Run one exact power-of-two chunk of same-bucket cycles; returns
@@ -794,29 +790,31 @@ class AFLSimulator:
         [B, ...] slice is contiguous; the chunk's residual rows are
         gathered and written back in place."""
         B = len(items)
-        if B == 1:
-            # no stacking: a [k, 1, ...] view of the loader's stack
-            host = {key: v[:, None] for key, v in items[0][3].items()}
-        else:
-            host = {key: np.stack([it[3][key] for it in items], axis=1)
-                    for key in items[0][3]}
-        batches = self._to_device(host)
-        k = next(iter(batches.values())).shape[0]
-        steps = [{key: v[i] for key, v in batches.items()} for i in range(k)]
-        seeds = [it[4] for it in items]
-        krows = [C.num_keep(self.dim, self.devices[it[1]].plan.delta)
-                 for it in items]
-        fn = self._bucket_fn(bkey, B)
-        with _prof.annotate("sim.bucket_dispatch"):
-            if bkey[3]:   # error feedback
+        with annotate("sim.stage"):
+            if B == 1:
+                # no stacking: a [k, 1, ...] view of the loader's stack
+                host = {key: v[:, None] for key, v in items[0][3].items()}
+            else:
+                host = {key: np.stack([it[3][key] for it in items], axis=1)
+                        for key in items[0][3]}
+            batches = self._to_device(host)
+            k = next(iter(batches.values())).shape[0]
+            steps = [{key: v[i] for key, v in batches.items()}
+                     for i in range(k)]
+            seeds = [it[4] for it in items]
+            krows = [C.num_keep(self.dim, self.devices[it[1]].plan.delta)
+                     for it in items]
+            if bkey[3]:   # error feedback: the chunk's residual rows
                 rows = torch.as_tensor([self._rowof[it[1]] for it in items],
                                        dtype=torch.long, device=self.device)
-                payload, new_rows, bits = fn(
-                    flat, self._res_stack.index_select(0, rows), steps,
-                    seeds, krows)
-                self._res_stack.index_copy_(0, rows, new_rows)
-            else:
-                payload, _, bits = fn(flat, None, steps, seeds, krows)
+        fn = self._bucket_fn(bkey, B)
+        if bkey[3]:
+            payload, new_rows, bits = fn(
+                flat, self._res_stack.index_select(0, rows), steps, seeds,
+                krows)
+            self._res_stack.index_copy_(0, rows, new_rows)
+        else:
+            payload, _, bits = fn(flat, None, steps, seeds, krows)
         return bkey, items, payload, bits
 
     def _collect_chunk(self, rec, results: dict) -> None:
@@ -871,27 +869,29 @@ class AFLSimulator:
         evals_done = 0
         last_t = 0.0
         while heap:
-            t, _, kind, payload = heapq.heappop(heap)
-            if t > max_sim_time or self.model.round >= total_rounds:
-                break
-            last_t = t
-            self.events_processed += 1
+            # the event loop's own work runs in "sim.schedule" spans; the
+            # phases (drain, dispatch, aggregate, eval) lie between them
+            with annotate("sim.schedule"):
+                t, _, kind, payload = heapq.heappop(heap)
+                if t > max_sim_time or self.model.round >= total_rounds:
+                    break
+                last_t = t
+                self.events_processed += 1
 
-            if kind == "start":
-                if self._batched:
+                if kind == "start" and self._batched:
                     # Drain every start that must precede the earliest
-                    # possible completion of the drained set: no aggregation
-                    # (= model change) can land in between, so the whole
-                    # group reads the same global model. Each popped start
-                    # resolves its upload outcome here, at pop time: down
-                    # devices queue their recovery, lost uploads queue their
-                    # restart at once (re-entering the heap so the drain
-                    # sees them in exact sequential event order), and
-                    # delivered uploads bound the horizon with their TRUE
-                    # arrival time (retries included). A device appears only
-                    # once per drain: buffered strategies can release it
-                    # several times at one timestamp, and those cycles chain
-                    # through its EF residual.
+                    # possible completion of the drained set: no
+                    # aggregation (= model change) can land in between, so
+                    # the whole group reads the same global model. Each
+                    # popped start resolves its upload outcome here, at pop
+                    # time: down devices queue their recovery, lost uploads
+                    # queue their restart at once (re-entering the heap so
+                    # the drain sees them in exact sequential event order),
+                    # and delivered uploads bound the horizon with their
+                    # TRUE arrival time (retries included). A device
+                    # appears only once per drain: buffered strategies can
+                    # release it several times at one timestamp, and those
+                    # cycles chain through its EF residual.
                     starts, seen, horizon = [], set(), math.inf
                     while True:
                         did, mr = payload
@@ -920,65 +920,77 @@ class AFLSimulator:
                         t, _, _, payload = heapq.heappop(heap)
                         last_t = t
                         self.events_processed += 1
+                elif kind == "start":
+                    did, mr = payload
+                    down = self.failure_schedule is not None and \
+                        self.failure_schedule.is_down(did, t)
+                    if down:
+                        rec = self.failure_schedule.recovery_time(did, t)
+                        self._trace_down(did, t, rec)
+                        push(rec, "start", (did, self.model.round))
+                    else:
+                        self._maybe_replan(did, t)
+                        arrive, restart_at, attempts, corrupt, ch_del = \
+                            self._schedule_upload(did, t)
+                elif kind == "arrival":
+                    a: Arrival = payload
+                    tr = self._tracer
+                    if tr is not None:
+                        tr.instant(SERVER_TRACK, "arrival", t,
+                                   device=a.device_id, round=a.model_round,
+                                   bits=a.wire_bits)
+                    if self._metrics is not None:
+                        self._metrics.counter("sim.arrivals").inc()
+                        self._metrics.counter("sim.wire_bits_arrived").inc(
+                            a.wire_bits)
+                    san = (getattr(self.agg, "sanitizer", None)
+                           if tr is not None else None)
+                    san_before = dict(san.counts) if san is not None \
+                        else None
+
+            if kind == "start":
+                if self._batched:
                     if starts:
                         with self._phase("heap_drain"):
                             self._process_starts_batched(starts, push)
                     continue
-                did, mr = payload
-                if self.failure_schedule is not None and \
-                        self.failure_schedule.is_down(did, t):
-                    rec = self.failure_schedule.recovery_time(did, t)
-                    self._trace_down(did, t, rec)
-                    push(rec, "start", (did, self.model.round))
+                if down:
                     continue
-                self._maybe_replan(did, t)
-                arrive, restart_at, attempts, corrupt, ch_del = \
-                    self._schedule_upload(did, t)
                 with self._phase("dispatch"):
                     update, strict_bits = self._device_compute(did)
-                per_upload = self._wire_bits(did, strict_bits)
-                if self.channel is not None and ch_del is not None:
-                    self.channel.charge_wire(per_upload, attempts, ch_del)
-                if arrive is None:  # crashed mid-flight / channel gave up
-                    push(restart_at, "start", (did, self.model.round))
-                else:
-                    if corrupt:
-                        update = self._poison(update)
-                    push(arrive, "arrival",
-                         Arrival(did, update, mr, per_upload * attempts,
-                                 arrive))
+                with annotate("sim.schedule"):
+                    per_upload = self._wire_bits(did, strict_bits)
+                    if self.channel is not None and ch_del is not None:
+                        self.channel.charge_wire(per_upload, attempts, ch_del)
+                    if arrive is None:  # crashed mid-flight / channel gave up
+                        push(restart_at, "start", (did, self.model.round))
+                    else:
+                        if corrupt:
+                            update = self._poison(update)
+                        push(arrive, "arrival",
+                             Arrival(did, update, mr, per_upload * attempts,
+                                     arrive))
 
             elif kind == "arrival":
-                a: Arrival = payload
-                tr = self._tracer
-                if tr is not None:
-                    tr.instant(SERVER_TRACK, "arrival", t,
-                               device=a.device_id, round=a.model_round,
-                               bits=a.wire_bits)
-                if self._metrics is not None:
-                    self._metrics.counter("sim.arrivals").inc()
-                    self._metrics.counter("sim.wire_bits_arrived").inc(
-                        a.wire_bits)
-                san = (getattr(self.agg, "sanitizer", None)
-                       if tr is not None else None)
-                san_before = dict(san.counts) if san is not None else None
                 with self._phase("aggregate"):
                     events = self.agg.on_arrival(t, a)
-                if san_before is not None:
-                    for cat, n in san.counts.items():
-                        for _ in range(n - san_before[cat]):
-                            tr.instant(SERVER_TRACK, cat, t,
-                                       device=a.device_id)
-                self._trace_agg_events(events)
-                for ev in events:
-                    for did in ev.release_to:
-                        push(ev.time, "start", (did, self.model.round))
-                    if syncb and ev.release_to:
-                        self.agg.begin_round(ev.time, list(self.devices))
-                if not events and not periodic and not syncb:
-                    # buffered strategy: device waits; FedBuff hands the
-                    # *current* model back immediately so training continues
-                    push(t, "start", (a.device_id, self.model.round))
+                with annotate("sim.schedule"):
+                    if san_before is not None:
+                        for cat, n in san.counts.items():
+                            for _ in range(n - san_before[cat]):
+                                tr.instant(SERVER_TRACK, cat, t,
+                                           device=a.device_id)
+                    self._trace_agg_events(events)
+                    for ev in events:
+                        for did in ev.release_to:
+                            push(ev.time, "start", (did, self.model.round))
+                        if syncb and ev.release_to:
+                            self.agg.begin_round(ev.time, list(self.devices))
+                    if not events and not periodic and not syncb:
+                        # buffered strategy: device waits; FedBuff hands
+                        # the *current* model back immediately so training
+                        # continues
+                        push(t, "start", (a.device_id, self.model.round))
                 if events and eval_every and \
                         self.model.round >= evals_done * eval_every:
                     self._eval(hist, t)
@@ -988,11 +1000,12 @@ class AFLSimulator:
                 r = payload
                 with self._phase("aggregate"):
                     events = self.agg.on_round_boundary(t)
-                self._trace_agg_events(events)
-                for ev in events:
-                    for did in ev.release_to:
-                        push(ev.time, "start", (did, self.model.round))
-                push(t + self.round_period, "boundary", r + 1)
+                with annotate("sim.schedule"):
+                    self._trace_agg_events(events)
+                    for ev in events:
+                        for did in ev.release_to:
+                            push(ev.time, "start", (did, self.model.round))
+                    push(t + self.round_period, "boundary", r + 1)
                 if eval_every and self.model.round >= evals_done * eval_every:
                     self._eval(hist, t)
                     evals_done += 1
@@ -1020,31 +1033,35 @@ class AFLSimulator:
                 acc = self.task.acc_fn(params, self._test_batch)
                 loss = self.task.loss_fn(params, self._test_batch)
             acc, loss = float(acc), float(loss)
-        # mean staleness over arrivals aggregated since the LAST eval: a
-        # fixed last-N slice would mix entries across aggregation rounds.
-        window = self.agg.staleness_log[self._stal_ptr:]
-        self._stal_ptr = len(self.agg.staleness_log)
-        cnt = self.fault_counters()
-        fault_window = {k: cnt[k] - self._last_counters.get(k, 0)
-                        for k in cnt if cnt[k] != self._last_counters.get(k, 0)}
-        self._last_counters = cnt
-        if self._metrics is not None:
-            h = self._metrics.histogram("sim.staleness", STALENESS_BUCKETS)
-            before = list(h.counts)
-            for s in window:
-                h.observe(s)
-            fault_window["staleness_counts"] = [
-                a - b for a, b in zip(h.counts, before)]
-        if self._tracer is not None:
-            self._tracer.instant(SERVER_TRACK, "eval", t,
-                                 round=int(self.model.round),
-                                 accuracy=acc, loss=loss)
-        hist.records.append(Record(
-            time=float(t), round=int(self.model.round),
-            accuracy=acc, loss=loss,
-            gbits=self.agg.total_bits / 1e9,
-            mean_staleness=float(np.mean(window)) if window else 0.0,
-            drops=cnt["drops_total"], window=fault_window))
+        with annotate("sim.schedule"):
+            # mean staleness over arrivals aggregated since the LAST eval:
+            # a fixed last-N slice would mix entries across aggregation
+            # rounds.
+            window = self.agg.staleness_log[self._stal_ptr:]
+            self._stal_ptr = len(self.agg.staleness_log)
+            cnt = self.fault_counters()
+            last = self._last_counters
+            fault_window = {k: cnt[k] - last.get(k, 0)
+                            for k in cnt if cnt[k] != last.get(k, 0)}
+            self._last_counters = cnt
+            if self._metrics is not None:
+                h = self._metrics.histogram("sim.staleness",
+                                            STALENESS_BUCKETS)
+                before = list(h.counts)
+                for s in window:
+                    h.observe(s)
+                fault_window["staleness_counts"] = [
+                    a - b for a, b in zip(h.counts, before)]
+            if self._tracer is not None:
+                self._tracer.instant(SERVER_TRACK, "eval", t,
+                                     round=int(self.model.round),
+                                     accuracy=acc, loss=loss)
+            hist.records.append(Record(
+                time=float(t), round=int(self.model.round),
+                accuracy=acc, loss=loss,
+                gbits=self.agg.total_bits / 1e9,
+                mean_staleness=float(np.mean(window)) if window else 0.0,
+                drops=cnt["drops_total"], window=fault_window))
 
 
 # ------------------------------------------------------------ device builders

@@ -46,6 +46,12 @@ pipeline (`kernels.ops.topk_compress`) per pod. "reference" is the
 dense-carrier oracle of the compact selection (same thresholds and
 budgets, the plain `ref_compact_blocks`, a dense mean).
 
+Spans (`obs.profiling.annotate`): `pod_sync.compact_pack` (on one card
+from the EF accumulate on), `pod_sync.all_gather` and
+`pod_sync.scatter_apply` on the compact wire, `pod_sync.dense` on the
+dense one; `dist.steps.make_pod_round_step` opens `pod.sync` around the
+call of the sync, so they nest under it.
+
 `CompactWire` / `all_gather_bytes` / `density_crossover` are the
 wire-cost model, copied from the reference as they are.
 """
@@ -188,11 +194,11 @@ def make_pod_sync(mesh, dim: int, *, rate: float, eta_g: float = 1.0,
 
     if wire == "compact":
         def sync(params, deltas, residuals):
-            acc = accumulate(params, deltas, residuals)
-            dev = acc.device
-            new_res = torch.empty_like(acc)
-            payloads = []
             with annotate("pod_sync.compact_pack"):
+                acc = accumulate(params, deltas, residuals)
+                dev = acc.device
+                new_res = torch.empty_like(acc)
+                payloads = []
                 for p in range(n_pods):
                     for s in range(n_shards):
                         own = slice(s * nbl, (s + 1) * nbl)

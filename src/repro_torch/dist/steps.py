@@ -18,7 +18,10 @@ the buffer — one `fused_momentum` launch for `momentum_sgd`.
 `batched_local_round` is its counterpart for a chunk of B devices (the
 simulator's batched engine): a stacked [B, d] buffer, `torch.func.vmap`
 gradients (`batched_grad`), and one `opt.update` over the whole [B·d]
-buffer per step.
+buffer per step. Both run in a "local_round" span with a
+"local_round.step" span per optimizer step, and a pod round in a
+"pod.round" span whose "pod.sync" span holds the call of the sync
+(`obs.profiling` lists the spans).
 
   make_train_step        fwd/bwd/update of an `LM` on plain or DTensor
                          parameters (the reference's builder): an
@@ -55,17 +58,18 @@ def local_round(loss_fn, opt, flat: torch.Tensor, spec, opt_state,
         w = flat.detach().to(torch.float32).clone().requires_grad_(True)
         losses = []
         for batch in batches:
-            tree = C.unflatten_pytree(w, spec)
-            leaves = [leaf for _, leaf in C._leaves(tree)]
-            loss = loss_fn(tree, batch)
-            # the gradient of each leaf view, concatenated in flat order:
-            # through the views to `w`, autograd would zero-fill a [d]
-            # gradient per leaf and sum them
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-            grad = torch.cat([g.reshape(-1) for g in grads])
-            _, opt_state = opt.update(grad, opt_state, w.detach())
-            losses.append(loss.detach())
+            with annotate("local_round.step"):
+                tree = C.unflatten_pytree(w, spec)
+                leaves = [leaf for _, leaf in C._leaves(tree)]
+                loss = loss_fn(tree, batch)
+                # the gradient of each leaf view, concatenated in flat
+                # order: through the views to `w`, autograd would
+                # zero-fill a [d] gradient per leaf and sum them
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+                grad = torch.cat([g.reshape(-1) for g in grads])
+                _, opt_state = opt.update(grad, opt_state, w.detach())
+                losses.append(loss.detach())
         w_k = w.detach()
         return opt_state, w_k, flat.to(torch.float32) - w_k, losses
 
@@ -106,15 +110,16 @@ def batched_local_round(loss_fn, opt, flat: torch.Tensor, spec, batches
     no batching rule, so it stays outside vmap; the update is elementwise,
     so one launch serves every row. Returns g = W0 − Wk, [B, d] (Eq. 4),
     equal row by row to `local_round`'s delta on the row's batches."""
-    with annotate("batched_local_round"):
+    with annotate("local_round"):
         w0 = flat.detach().to(torch.float32)
         rows = next(iter(batches[0].values())).shape[0]
         w = w0.repeat(rows, 1)          # a copy, also when rows == 1
         state = opt.init(w.view(-1))
         grad = batched_grad(loss_fn, spec)
         for batch in batches:
-            _, state = opt.update(grad(w, batch).reshape(-1), state,
-                                  w.view(-1))
+            with annotate("local_round.step"):
+                _, state = opt.update(grad(w, batch).reshape(-1), state,
+                                      w.view(-1))
         return w0 - w
 
 
@@ -160,37 +165,44 @@ def make_pod_round_step(lm, opt, k: int, sync, *, spec, dim: int,
     """
 
     def step(params_blocked, opt_states, batches, residuals):
-        if getattr(sync, "mesh", None) is not None:
-            return _pod_round_across(lm, opt, k, sync, spec, dim,
-                                     params_blocked, opt_states, batches,
-                                     residuals)
-        nb, blk = params_blocked.shape
-        if nb != n_blocks or nb * blk < dim:
-            raise ValueError(f"params_blocked {tuple(params_blocked.shape)} "
-                             f"does not hold {n_blocks} blocks of dim {dim}")
-        n_pods = len(opt_states)
-        dev = params_blocked.device
-        flat = params_blocked.reshape(-1)[:dim]
-        # the padded coordinates get a zero delta
-        flat_deltas = torch.zeros((n_pods, nb * blk), dtype=torch.float32,
-                                  device=dev)
-        new_states, losses = [], []
-        for p in range(n_pods):
-            pod_batches = {key: v[p] for key, v in batches.items()}
-            s_k, _, delta, pod_losses = local_round(
-                lm.loss, opt, flat, spec, opt_states[p],
-                _steps(pod_batches, k))
-            flat_deltas[p, :dim] = delta
-            new_states.append(s_k)
-            losses.append(torch.stack(pod_losses).mean())
-        deltas = flat_deltas.view(n_pods, nb, blk)
-        new_blocked, new_residuals = sync(params_blocked, deltas, residuals)
-        return new_blocked, new_states, new_residuals, \
-            torch.stack(losses).mean()
+        with annotate("pod.round"):
+            if getattr(sync, "mesh", None) is not None:
+                return _pod_round_across(lm, opt, k, sync, spec, dim,
+                                         params_blocked, opt_states, batches,
+                                         residuals)
+            return _pod_round(lm, opt, k, sync, spec, dim, n_blocks,
+                              params_blocked, opt_states, batches, residuals)
 
     step.wire_bits_per_pod = float(getattr(sync, "payload_bits_per_pod",
                                            0.0))
     return step
+
+
+def _pod_round(lm, opt, k, sync, spec, dim, n_blocks, params_blocked,
+               opt_states, batches, residuals):
+    """The pod round with every pod on this process's one device."""
+    nb, blk = params_blocked.shape
+    if nb != n_blocks or nb * blk < dim:
+        raise ValueError(f"params_blocked {tuple(params_blocked.shape)} "
+                         f"does not hold {n_blocks} blocks of dim {dim}")
+    n_pods = len(opt_states)
+    dev = params_blocked.device
+    flat = params_blocked.reshape(-1)[:dim]
+    # the padded coordinates get a zero delta
+    flat_deltas = torch.zeros((n_pods, nb * blk), dtype=torch.float32,
+                              device=dev)
+    new_states, losses = [], []
+    for p in range(n_pods):
+        pod_batches = {key: v[p] for key, v in batches.items()}
+        s_k, _, delta, pod_losses = local_round(
+            lm.loss, opt, flat, spec, opt_states[p], _steps(pod_batches, k))
+        flat_deltas[p, :dim] = delta
+        new_states.append(s_k)
+        losses.append(torch.stack(pod_losses).mean())
+    deltas = flat_deltas.view(n_pods, nb, blk)
+    with annotate("pod.sync"):
+        new_blocked, new_residuals = sync(params_blocked, deltas, residuals)
+    return new_blocked, new_states, new_residuals, torch.stack(losses).mean()
 
 
 def _pod_round_across(lm, opt, k, sync, spec, dim, params_blocked,
@@ -223,7 +235,8 @@ def _pod_round_across(lm, opt, k, sync, spec, dim, params_blocked,
                                 residuals.placements, run_check=False,
                                 shape=tuple(residuals.shape),
                                 stride=tuple(residuals.stride()))
-    new_blocked, new_residuals = sync(params_blocked, deltas, residuals)
+    with annotate("pod.sync"):
+        new_blocked, new_residuals = sync(params_blocked, deltas, residuals)
     new_states = list(opt_states)
     new_states[pod] = s_k
     loss = spmd.all_reduce(torch.stack(losses).mean(), mesh, ["pod"]) \

@@ -1,22 +1,53 @@
-"""Profiling hooks: wall-clock phase timers and torch.profiler annotations.
+"""Profiling hooks: the port's one span primitive, and the launch
+profilers' capture and summary.
 
-`PhaseTimers` accumulates `time.perf_counter` wall-clock totals per named
-phase (local-round dispatch, host aggregation, eval). perf_counter is
-monotonic — immune to clock adjustments — and the timers live entirely
-host-side. On a CUDA device a phase measures host time: kernels are
-enqueued asynchronously, so a phase ends before its device work unless
-something in it synchronises (the sequential engine's payload pull does).
+`annotate(name, timers=None, key=None)` opens one span. With profiling
+off (the default) and no timers it returns a shared null context: one
+module-level predicate per call site, no allocation. With `timers` (a
+`PhaseTimers`) it adds the span's host seconds and one call to
+`timers` under `key` (default: `name`). With profiling on
+(`set_profiling(True)`, or REPRO_PROFILE=1 in the environment) it opens
+a `torch.profiler.record_function(name)` range and, with CUDA available,
+an NVTX range of the same name (`torch.cuda.nvtx`), the counterpart of
+the reference's `jax.profiler.TraceAnnotation`. A `torch.profiler`
+capture then holds each span as a host row on kineto's clock, the clock
+of its device rows, and Nsight Systems shows the NVTX ranges.
 
-`annotate(name)` wraps a host-side dispatch in
-`torch.profiler.record_function` when profiling is switched on
-(`set_profiling(True)` or REPRO_PROFILE=1 in the environment), so a
-`torch.profiler.profile()` capture shows the local-round and compressor
-dispatches as named regions; with CUDA available it also opens an NVTX
-range of the same name (`torch.cuda.nvtx`), so Nsight Systems shows the
-same regions (the counterpart of the reference's
-`jax.profiler.TraceAnnotation`). When profiling is off it returns a
-shared null context — one module-level predicate per call, no
-allocation.
+Operators: run any entry point with REPRO_PROFILE=1 under Nsight
+Systems, or inside `torch.profiler.profile()` (`device_profile()`), to
+see the span tree. The spans and their nesting:
+
+  AFLSimulator.run (core/simulator.py)
+    sim.schedule        the event loop's own work on each popped event:
+                        heap pops, down checks, re-plans, upload
+                        outcomes, pushes; it never holds a phase
+    sim.heap_drain      a drained batch of starts (batched engine)
+      sim.draw          each start's batches and seed, the buckets, the
+                        global model's upload
+      sim.dispatch      every chunk of the drain, enqueued
+        sim.stage       a chunk's batches stacked and copied to the card
+        local_round     a chunk's (or one device's) local round
+          local_round.step   one optimizer step
+        sim.compress    the chunk's rows compressed
+      sim.collect       the payload pulls and their unpacking
+      sim.schedule      the drain's arrival pushes
+    sim.dispatch        one device's cycle (sequential engine): sim.stage,
+                        local_round, sim.compress
+    sim.aggregate       the server: sanitizer and Eq. 6 on the host
+    sim.eval            the global model's accuracy and loss
+  make_pod_round_step (dist/steps.py)
+    pod.round           one datacenter round
+      local_round       one pod's local round (local_round.step each step)
+      pod.sync          the call of the cross-pod sync, whatever wraps it
+        pod_sync.compact_pack, pod_sync.all_gather, pod_sync.scatter_apply
+                        (compact wire) or pod_sync.dense (dense wire),
+                        in `dist/collectives.py`
+
+The simulator's phases `heap_drain`, `dispatch`, `collect`, `aggregate`
+and `eval` are also `PhaseTimers` keys (`--metrics-out`'s `time.*`).
+`PhaseTimers` totals are host time: kernels are enqueued
+asynchronously, so a span ends before its device work unless something
+in it synchronises.
 
 `device_profile()` and `device_breakdown(prof, wall_s)` are the launch
 profilers' shared capture and summary: device-busy seconds, the idle
@@ -36,7 +67,7 @@ _NULL_CTX = contextlib.nullcontext()
 
 
 def set_profiling(on: bool) -> None:
-    """Globally enable/disable torch.profiler annotations."""
+    """Globally enable/disable the spans' profiler and NVTX ranges."""
     global _PROFILE
     _PROFILE = bool(on)
 
@@ -45,12 +76,21 @@ def profiling_enabled() -> bool:
     return _PROFILE
 
 
-def annotate(name: str):
-    """Context manager: a `torch.profiler.record_function(name)` region,
-    and an NVTX range of that name when CUDA is available, when profiling
-    is enabled; else a shared no-op context."""
+def annotate(name: str, timers: PhaseTimers | None = None,
+             key: str | None = None):
+    """The span `name` as a context manager: host seconds and a call
+    added to `timers[key or name]` when `timers` is given, and a
+    `torch.profiler.record_function(name)` range (with an NVTX range of
+    that name when CUDA is available) when profiling is enabled; a
+    shared no-op context when neither is."""
+    if timers is not None:
+        return _timed(name, timers, name if key is None else key)
     if not _PROFILE:
         return _NULL_CTX
+    return _range(name)
+
+
+def _range(name: str):
     import torch
     if not torch.cuda.is_available():
         return torch.profiler.record_function(name)
@@ -62,6 +102,16 @@ def _nvtx_region(name: str):
     import torch
     with torch.cuda.nvtx.range(name), torch.profiler.record_function(name):
         yield
+
+
+@contextlib.contextmanager
+def _timed(name: str, timers: PhaseTimers, key: str):
+    t0 = time.perf_counter()
+    try:
+        with _range(name) if _PROFILE else _NULL_CTX:
+            yield
+    finally:
+        timers.add(key, time.perf_counter() - t0)
 
 
 def device_profile():
@@ -120,21 +170,15 @@ def device_breakdown(prof, wall_s: float, top: int = 15) -> dict:
 
 
 class PhaseTimers:
-    """Named wall-clock accumulators: `with timers.phase("drain"): ...`."""
+    """Named wall-clock accumulators: `with timers.phase("drain"): ...`
+    is `annotate("drain", timers)`."""
 
     def __init__(self):
         self.totals: dict[str, float] = {}
         self.calls: dict[str, int] = {}
 
-    @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.calls[name] = self.calls.get(name, 0) + 1
+        return annotate(name, self)
 
     def add(self, name: str, seconds: float) -> None:
         """Manual accumulation for phases that cannot use a with-block."""

@@ -11,10 +11,8 @@ same run; that list equality is a correctness gate
 Timestamps are simulated seconds (floats from the event heap). No wall
 clock, no RNG: tracing can never perturb a run's results.
 
-`NullTracer` is the zero-cost default path's measurement twin: the
-simulator guards every call site with `tracer is not None`, so the default
-(`tracer=None`) pays one predicate per site; passing a `NullTracer`
-exercises every site with no-op method calls.
+The simulator guards every call site with `tracer is not None`, so the
+default (`tracer=None`) pays one predicate per site.
 """
 from __future__ import annotations
 
@@ -55,8 +53,6 @@ def _args(kw: dict) -> tuple:
 class Tracer:
     """Recording tracer: appends TraceEvents to `self.events`."""
 
-    enabled = True
-
     def __init__(self):
         self.events: list[TraceEvent] = []
 
@@ -85,18 +81,3 @@ class Tracer:
 
     def clear(self) -> None:
         self.events.clear()
-
-
-class NullTracer(Tracer):
-    """Every emission is a no-op; used to measure call-site overhead."""
-
-    enabled = False
-
-    def span(self, track, name, t0, t1, **kw) -> None:
-        pass
-
-    def instant(self, track, name, t, **kw) -> None:
-        pass
-
-
-NULL_TRACER = NullTracer()
