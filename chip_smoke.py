@@ -28,8 +28,9 @@ Phases (any failure exits non-zero and prints no result line):
 3. cli      `run_fl(--task cnn_fmnist --method fedluck --error-feedback
             --rounds 3 --device cuda)` with the CLI's other defaults (10
             devices, 4000 samples; the batched engine): finite accuracy,
-            positive gbits, one chunk row per cycle, and fused_momentum
-            launches == the sum over the dispatched chunks of the chunk's k
+            positive gbits, one chunk row per cycle, and fused_momentum's
+            wrapper calls == the sum of the k of the dispatched chunks
+            that did not replay a captured CUDA graph
             (chunks counted by wrapping AFLSimulator._dispatch_chunk);
 4. batched  cnn_fmnist at full width, `fedper` with error feedback: 10
             devices, k = 10, δ = 0.1, one topk bucket, a 15 s round period
@@ -42,8 +43,11 @@ Phases (any failure exits non-zero and prints no result line):
             round, gbits, staleness) and wire bits; after round 1 (one
             drain from the same model) accuracy within 0.02 and loss
             within rtol 1e-3, later rounds printed beside the sequential
-            engine's own turn-to-turn spread; fused_momentum launches == 10 x
-            chunks, fewer than the sequential run's; prints each wall.
+            engine's own turn-to-turn spread; each chunk shape replays
+            its CUDA graph in the third drain, and fused_momentum's
+            wrapper calls == 10 x the chunks that did not replay a
+            captured graph, fewer than the sequential run's; prints each
+            wall.
             Before the runs, the gradients themselves
             (`launch.grad_accuracy.first_step_check`, 8 rows x 10 steps
             at full width): wherever the batched and the sequential
@@ -54,7 +58,8 @@ Phases (any failure exits non-zero and prints no result line):
             a fedluck fleet with compressor_override="topk_threshold" and
             k_grid [1, 2, 4, 8, 16, 30], 2 rounds of the batched engine:
             ef_topk launches == cycles, magnitude_hist launches == 2 x
-            cycles, fused_momentum == the chunks' k summed;
+            cycles, fused_momentum == the k of the chunks that did not
+            replay a captured graph, summed;
 5. thresh   the same topk_threshold fleet without k_grid, 2 rounds of the
             sequential engine: ef_topk launches == cycles and
             magnitude_hist launches == 2 x cycles;
@@ -157,8 +162,10 @@ limit.
 
 Kernel launch counts are set to 0 just before each main-path run and read
 just after it; launches made to compare a kernel with its plain version
-do not count. The `kernels` line reports fused_momentum's launches from
-`cli`, ef_topk's and magnitude_hist's from `batched`'s topk_threshold run
+do not count. A wrapper counts its calls: a replayed CUDA graph
+launches the kernels it holds without one. The `kernels` line reports
+fused_momentum's launches from `cli` (its eager and captured rounds),
+ef_topk's and magnitude_hist's from `batched`'s topk_threshold run
 (the CLI's engine) and compact_blocks' from `pod`; fused_momentum's
 launches on the datacenter path and on the mesh train path, and the
 cross-process sync's launches per round, are printed on lines of their
@@ -605,17 +612,36 @@ class ChunkCounter:
     """Counts the batched engine's chunk dispatches (their sizes and the
     sum of their local k) by wrapping AFLSimulator._dispatch_chunk, so a
     kernel's launch count is checked against chunks counted apart from
-    the kernel wrappers."""
+    the kernel wrappers. On the card a chunk shape's local round replays
+    a CUDA graph from its second use on: the graph launches its steps'
+    `fused_momentum` kernels without a call of the wrapper, which counts
+    its calls (eager rounds, and the capture). `replayed` and
+    `replayed_steps` count the chunks that replayed an already captured
+    graph and their local k, read from the simulator's
+    `engine.graph_captures` / `engine.graph_replays` (so with metrics)."""
 
     def __enter__(self):
         from repro_torch.core.simulator import AFLSimulator
         self._cls, self._real = AFLSimulator, AFLSimulator._dispatch_chunk
         self.sizes, self.steps = [], 0
+        self.replayed = self.replayed_steps = 0
+
+        def graphs(sim) -> tuple:
+            c = (sim._metrics.snapshot()["counters"]
+                 if sim._metrics is not None else {})
+            return (c.get("engine.graph_captures", 0.0),
+                    c.get("engine.graph_replays", 0.0))
 
         def dispatch(sim, bkey, items, flat):
             self.sizes.append(len(items))
             self.steps += bkey[0]          # the bucket's local k
-            return self._real(sim, bkey, items, flat)
+            c0, r0 = graphs(sim)
+            out = self._real(sim, bkey, items, flat)
+            c1, r1 = graphs(sim)
+            if r1 > r0 and c1 == c0:
+                self.replayed += 1
+                self.replayed_steps += bkey[0]
+            return out
         AFLSimulator._dispatch_chunk = dispatch
         return self
 
@@ -649,7 +675,9 @@ def phase_cli(torch, dev: str = "cuda") -> int:
     log(f"[cli] {json.dumps(res)}")
     log(f"[cli] engine {metrics['engine']}, wall {wall:.3f}s, cycles "
         f"{local_k['count']}, chunks {len(chunks.sizes)} (sizes "
-        f"{chunks.sizes}), sum of the chunks' k {chunks.steps}, launches {c}")
+        f"{chunks.sizes}), sum of the chunks' k {chunks.steps}, replayed "
+        f"{chunks.replayed} chunks of {chunks.replayed_steps} steps, "
+        f"launches {c}")
     if not math.isfinite(res["final_accuracy"]) or res["gbits"] <= 0:
         fail(f"cli result not sane: {res}")
     if res["rounds"] != 3 or metrics["engine"] != "batched":
@@ -658,10 +686,13 @@ def phase_cli(torch, dev: str = "cuda") -> int:
     if sum(chunks.sizes) != local_k["count"]:
         fail(f"chunks hold {sum(chunks.sizes)} rows for "
              f"{local_k['count']} cycles")
-    if dev == "cuda" and (c["fused_momentum"] != chunks.steps
-                          or c["fused_momentum"] == 0):
-        fail(f"fused_momentum launched {c['fused_momentum']} times, the "
-             f"dispatched chunks' k sum to {chunks.steps}")
+    if dev == "cuda" and (
+            c["fused_momentum"] != chunks.steps - chunks.replayed_steps
+            or c["fused_momentum"] == 0):
+        fail(f"fused_momentum called {c['fused_momentum']} times, the "
+             f"dispatched chunks' k sum to {chunks.steps}, "
+             f"{chunks.replayed_steps} of them in {chunks.replayed} "
+             f"replayed graphs")
     return c["fused_momentum"]
 
 
@@ -777,14 +808,21 @@ def phase_batched(torch, dev: str = "cuda") -> dict:
                 seq["metrics"].snapshot(engine_agnostic=True):
             fail(f"turn {i}: engine-agnostic metrics differ")
     for b in (runs[0], runs[3]):
-        sizes, fm = b["chunks"].sizes, b["launches"]["fused_momentum"]
+        ch = b["chunks"]
+        sizes, fm = ch.sizes, b["launches"]["fused_momentum"]
         if sizes != [8, 2] * 3 or b["cycles"] != 30:
             fail(f"chunks {sizes} for {b['cycles']} cycles, expected 8 + 2 "
                  f"in each of 3 drains")
-        if dev == "cuda" and (fm != 10 * len(sizes) or fm != b["chunks"].steps
-                              or fm >= seq["launches"]["fused_momentum"]):
-            fail(f"batched fused_momentum launches {fm} for {len(sizes)} "
-                 f"chunks (sequential {seq['launches']['fused_momentum']})")
+        # each chunk shape: eager in the first drain, captured and
+        # replayed in the second, replayed in the third
+        if dev == "cuda" and (
+                ch.replayed != 2
+                or fm != 10 * (len(sizes) - ch.replayed)
+                or fm != ch.steps - ch.replayed_steps
+                or fm >= seq["launches"]["fused_momentum"]):
+            fail(f"batched fused_momentum calls {fm} for {len(sizes)} "
+                 f"chunks, {ch.replayed} replayed (sequential "
+                 f"{seq['launches']['fused_momentum']})")
     for i in (0, 2, 3):
         log(f"[batched] turn {i} vs turn 1, (round, Δacc, Δloss): " + str(
             [(x.round, x.accuracy - y.accuracy, x.loss - y.loss)
@@ -804,7 +842,8 @@ def phase_batched(torch, dev: str = "cuda") -> dict:
         fail("batched topk_threshold run gave a non-finite result")
     if dev == "cuda" and (th["cycles"] == 0 or c["ef_topk"] != th["cycles"]
                           or c["magnitude_hist"] != 2 * th["cycles"]
-                          or c["fused_momentum"] != th["chunks"].steps):
+                          or c["fused_momentum"] != th["chunks"].steps
+                          - th["chunks"].replayed_steps):
         fail(f"batched topk_threshold launches {c} for {th['cycles']} "
              f"cycles, chunks' k {th['chunks'].steps}")
     return c

@@ -23,6 +23,9 @@ Two engines share the same event semantics, as in the reference:
   are gathered and written back in place (`index_copy_`), and sparse
   payloads come off the device as one compact (values, indices) pull per
   chunk. Mixed δ_i within a top-k band use `compression.topk_capped`.
+  On a CUDA device each chunk shape's local round runs eagerly once,
+  then replays as one CUDA graph (`_ChunkGraph`) over a drain-long arena
+  of static tensors (`_Arena`).
   For a model without convolutions the engine is bitwise equal to the
   sequential one on the CPU. A vmapped convolution is a grouped one and
   rounds differently; where a max-pool window's two largest inputs are
@@ -65,7 +68,8 @@ from repro_torch.core.aggregation import (Arrival, GlobalModel,
 from repro_torch.core import factor
 from repro_torch.core.controller import DeviceProfile, FedLuckController
 from repro_torch.core.factor import Plan
-from repro_torch.dist.steps import batched_local_round, local_round
+from repro_torch.dist.steps import (batched_local_round, capture_graph,
+                                    local_round)
 from repro_torch.kernels import ops
 from repro_torch.obs.metrics import STALENESS_BUCKETS
 from repro_torch.obs.profiling import PhaseTimers, annotate
@@ -193,6 +197,88 @@ def _chunk_sizes(n: int, cap: int = _CHUNK_CAP) -> list[int]:
 _SPARSE_WIRE = C.SPARSE_WIRE
 
 
+def _device_array(v) -> np.ndarray:
+    """A host array as the device holds it: floating arrays as float32, as
+    JAX (x64 off) makes them; the synthetic images may be float64."""
+    v = np.asarray(v)
+    if np.issubdtype(v.dtype, np.floating):
+        v = v.astype(np.float32)
+    return v
+
+
+class _Arena:
+    """The chunk graphs' static tensors for one drain, in a memory pool of
+    their own: the global model `w0` [d], one flat input buffer per batch
+    key, room for `rows` device-steps of `batch` samples shaped as in
+    `host` (one device's [k, batch, ...] arrays), and the graphs' output
+    `out` [P, d]. A chunk's batches are staged into the inputs' leading
+    elements and its graph writes its g = w0 − wk into `out[:B]`, so
+    each chunk shape finds its tensors at the same addresses in every
+    drain while the sizes stay the same. A drain never holds an
+    aggregation or an evaluation, so the arena lives from its drain's
+    start to its end; allocated again in the same order from the same
+    pool, it gets the same addresses."""
+
+    def __init__(self, pool, dim: int, rows: int, batch: int, P: int,
+                 host: dict, device):
+        with torch.cuda.use_mem_pool(pool):
+            self.w0 = torch.empty(dim, dtype=torch.float32, device=device)
+            self.inputs = {
+                key: torch.empty(rows * batch * math.prod(v.shape[2:]),
+                                 device=device, dtype=torch.from_numpy(
+                                     _device_array(v[:0])).dtype)
+                for key, v in sorted(host.items())}
+            self.out = torch.empty((P, dim), dtype=torch.float32,
+                                   device=device)
+
+    def stage(self, host: dict) -> dict:
+        """Host [k, B, ...] arrays -> views of the inputs, copied in."""
+        out = {}
+        for key, v in host.items():
+            out[key] = self.inputs[key][:v.size].view(v.shape)
+            out[key].copy_(torch.as_tensor(_device_array(v)))
+        return out
+
+
+class _ChunkGraph:
+    """A chunk shape's local round, `round_fn(flat, steps) -> g [B, d]`,
+    replayed as one CUDA graph: a `_bucket_fn` cache entry's on a CUDA
+    device. Its first use runs eagerly, which is also the warm-up that
+    capture needs; the second captures `round_fn` over that use's tensors
+    (the drain's arena) and replays; later uses replay, and capture
+    again where the tensors moved. `out()` gives the [B, d] view the
+    graph writes g to. Nothing in the graph reads a number back to the
+    host, and its temporaries live in the shared graph pool `pool` only
+    while it runs, so graphs may replay in any order."""
+
+    def __init__(self, round_fn: Callable, out: Callable, pool, metrics):
+        self.round_fn, self.out, self.pool = round_fn, out, pool
+        self.metrics = metrics
+        self.uses, self.graph, self.ptrs = 0, None, None
+
+    def _count(self, name: str) -> None:
+        if self.metrics is not None:
+            self.metrics.counter(name).inc()
+
+    def __call__(self, flat: torch.Tensor, steps: list[dict]
+                 ) -> torch.Tensor:
+        self.uses += 1
+        if self.uses == 1:
+            return self.round_fn(flat, steps)
+        out = self.out()
+        ptrs = (flat.data_ptr(), out.data_ptr(),
+                *(v.data_ptr() for step in steps for v in step.values()))
+        if self.graph is None or ptrs != self.ptrs:
+            self.graph = capture_graph(
+                lambda: out.copy_(self.round_fn(flat, steps)), self.pool)
+            self.ptrs = ptrs
+            self._count("engine.graph_captures")
+        with annotate("local_round"):
+            self.graph.replay()
+        self._count("engine.graph_replays")
+        return out
+
+
 # ------------------------------------------------------------------ simulator
 class AFLSimulator:
     def __init__(self, task: TrainTask, devices: list[DeviceSpec],
@@ -300,6 +386,13 @@ class AFLSimulator:
                 for did in self._dids}
         self._compress_fns: dict[tuple, C.Compressor] = {}
         self._bucket_fns: dict[tuple, Callable] = {}
+        # on a CUDA device the chunks' local rounds replay as CUDA graphs
+        # (`_ChunkGraph`): the graphs' shared memory pool, and the pool of
+        # the drain-long arena they read and write (`_Arena`)
+        self._graph_pool = self._arena_pool = self._arena = None
+        if self._batched and self.device.type == "cuda":
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._arena_pool = torch.cuda.MemPool()
         self._test_batch = self._to_device(task.test_batch)
         self._stal_ptr = 0   # staleness_log watermark for per-eval windows
 
@@ -358,15 +451,9 @@ class AFLSimulator:
 
     # ---------------------------------------------------------- device compute
     def _to_device(self, batch: dict) -> dict:
-        """Host batch -> device tensors. Floating arrays become float32, as
-        JAX (x64 off) makes them; the synthetic images may be float64."""
-        out = {}
-        for k, v in batch.items():
-            v = np.asarray(v)
-            if np.issubdtype(v.dtype, np.floating):
-                v = v.astype(np.float32)
-            out[k] = torch.as_tensor(v).to(self.device)
-        return out
+        """Host batch -> device tensors (`_device_array`)."""
+        return {k: torch.as_tensor(_device_array(v)).to(self.device)
+                for k, v in batch.items()}
 
     def _local_round(self, flat: torch.Tensor, batches: list[dict]
                      ) -> torch.Tensor:
@@ -438,11 +525,17 @@ class AFLSimulator:
             members.setdefault(self._bucket_key(self.devices[did]),
                                []).append(did)
         self._bucket_kcap = {}
+        # the arena's sizes (`_Arena`): the most per-step rows (k·B) and
+        # devices (B) of any chunk the plan can form
+        self._arena_rows = self._arena_P = 0
         for bkey, dids in members.items():
             if bkey[1] == "topk" and bkey[2] != "full":
                 self._bucket_kcap[bkey] = max(
                     C.num_keep(self.dim, self.devices[d].plan.delta)
                     for d in dids)
+            P = _chunk_sizes(len(dids))[0]
+            self._arena_rows = max(self._arena_rows, bkey[0] * P)
+            self._arena_P = max(self._arena_P, P)
 
     @staticmethod
     def _bucket_sparse(bkey: tuple) -> bool:
@@ -458,7 +551,8 @@ class AFLSimulator:
         like the reference's jit cache, and each miss counts as
         `engine.bucket_compiles`: a re-plan can change which δ_i share a
         band, and a chunk built for the old (smaller) cap would truncate
-        the new bucket's selection."""
+        the new bucket's selection. On a CUDA device the entry's local
+        round is a `_ChunkGraph`."""
         cache_key = (bkey, P, self._bucket_kcap.get(bkey))
         if cache_key in self._bucket_fns:
             return self._bucket_fns[cache_key]
@@ -507,18 +601,23 @@ class AFLSimulator:
                 payload, dense, bits = compress(acc, gen, krow)
                 return payload, None if res is None else acc - dense, bits
 
-        def chunk(flat, res_rows, steps, seeds, krows):
+        def local(flat, steps):
             if P == 1:
                 # one row batches nothing: the sequential engine's
                 # autograd round, without vmap's host cost
-                g = self._local_round(
+                return self._local_round(
                     flat, [{key: v[0] for key, v in step.items()}
                            for step in steps])[None]
-            else:
-                g = batched_local_round(
-                    self.task.loss_fn,
-                    momentum_sgd(self.eta_l, self.momentum), flat, spec,
-                    steps)
+            return batched_local_round(
+                self.task.loss_fn, momentum_sgd(self.eta_l, self.momentum),
+                flat, spec, steps)
+
+        if self._graph_pool is not None:
+            local = _ChunkGraph(local, lambda: self._arena.out[:P],
+                                self._graph_pool, self._metrics)
+
+        def chunk(flat, res_rows, steps, seeds, krows):
+            g = local(flat, steps)
             payloads, new_rows, bits = [], [], []
             with annotate("sim.compress"):
                 for i in range(P):
@@ -752,24 +851,36 @@ class AFLSimulator:
                     occ.observe(len(items))
             # one host->device model upload per drain: no aggregation lands
             # inside a drain, so every chunk reads the same global model
-            flat = torch.tensor(self.model.w, device=self.device)
+            if self._arena_pool is None:
+                flat = torch.tensor(self.model.w, device=self.device)
+            else:
+                self._arena = _Arena(
+                    self._arena_pool, self.dim, self._arena_rows,
+                    max(ld.batch_size for ld in self.loaders.values()),
+                    self._arena_P, order[0][3], self.device)
+                flat = self._arena.w0
+                flat.copy_(torch.from_numpy(self.model.w))
         pending = []
         chunk_hist = (self._metrics.histogram("engine.chunk_size",
                                               _SIZE_BUCKETS)
                       if self._metrics is not None else None)
-        with self._phase("dispatch"):
-            for bkey, items in buckets.items():
-                pos = 0
-                for size in _chunk_sizes(len(items)):
-                    if chunk_hist is not None:
-                        chunk_hist.observe(size)
-                    pending.append(self._dispatch_chunk(
-                        bkey, items[pos:pos + size], flat))
-                    pos += size
         results: dict[int, tuple] = {}
-        with self._phase("collect"):
-            for rec in pending:
-                self._collect_chunk(rec, results)
+        try:
+            with self._phase("dispatch"):
+                for bkey, items in buckets.items():
+                    pos = 0
+                    for size in _chunk_sizes(len(items)):
+                        if chunk_hist is not None:
+                            chunk_hist.observe(size)
+                        pending.append(self._dispatch_chunk(
+                            bkey, items[pos:pos + size], flat))
+                        pos += size
+            with self._phase("collect"):
+                for rec in pending:
+                    self._collect_chunk(rec, results)
+        finally:
+            # no payload aliases the arena: they are stacked copies
+            self._arena = None
 
         with annotate("sim.schedule"):
             for t, did, mr, arrive, attempts, corrupt, ch_del in starts:
@@ -797,7 +908,8 @@ class AFLSimulator:
             else:
                 host = {key: np.stack([it[3][key] for it in items], axis=1)
                         for key in items[0][3]}
-            batches = self._to_device(host)
+            batches = (self._to_device(host) if self._arena is None
+                       else self._arena.stage(host))
             k = next(iter(batches.values())).shape[0]
             steps = [{key: v[i] for key, v in batches.items()}
                      for i in range(k)]

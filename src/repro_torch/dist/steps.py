@@ -21,7 +21,8 @@ gradients (`batched_grad`), and one `opt.update` over the whole [B·d]
 buffer per step. Both run in a "local_round" span with a
 "local_round.step" span per optimizer step, and a pod round in a
 "pod.round" span whose "pod.sync" span holds the call of the sync
-(`obs.profiling` lists the spans).
+(`obs.profiling` lists the spans). `capture_graph` records a call as
+one CUDA graph, for the simulator's batched engine to replay.
 
   make_train_step        fwd/bwd/update of an `LM` on plain or DTensor
                          parameters (the reference's builder): an
@@ -121,6 +122,28 @@ def batched_local_round(loss_fn, opt, flat: torch.Tensor, spec, batches
                 _, state = opt.update(grad(w, batch).reshape(-1), state,
                                       w.view(-1))
         return w0 - w
+
+
+def capture_graph(fn, pool) -> torch.cuda.CUDAGraph:
+    """`fn()` captured as one CUDA graph, its temporaries in the graph
+    memory pool `pool`; returns the graph, not yet run. Capture runs on
+    `torch.cuda.graph`'s side stream, so `fn`'s lazy set-up (handles,
+    Triton's JIT, autograd's device thread) must have run before, as an
+    eager call of `fn` does.
+
+    cuBLAS keeps a 32 MiB workspace per (handle, stream) for the life of
+    the process, and a capture on a new stream would add one for each of
+    the two threads that run GEMMs (the caller's and autograd's). So the
+    workspaces are dropped before the capture (the default stream's come
+    back on their next use) and after it: the capture stream's were
+    allocated in `pool`, and the graph keeps their addresses, as scratch
+    that nothing outside its own launches reads."""
+    torch._C._cuda_clearCublasWorkspaces()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        fn()
+    torch._C._cuda_clearCublasWorkspaces()
+    return graph
 
 
 def _steps(batches: dict, k: int) -> list[dict]:

@@ -26,8 +26,11 @@ see the span tree. The spans and their nesting:
                         global model's upload
       sim.dispatch      every chunk of the drain, enqueued
         sim.stage       a chunk's batches stacked and copied to the card
-        local_round     a chunk's (or one device's) local round
-          local_round.step   one optimizer step
+        local_round     a chunk's (or one device's) local round; on a
+                        CUDA device, from a chunk shape's second use
+                        on, the replay of its CUDA graph, which holds
+                        all k steps and so has no step spans
+          local_round.step   one optimizer step of an eager round
         sim.compress    the chunk's rows compressed
       sim.collect       the payload pulls and their unpacking
       sim.schedule      the drain's arrival pushes
