@@ -1,5 +1,6 @@
-"""Assigned architecture registry: --arch <id> resolves here (the port's
-copy of `repro.configs`)."""
+"""Architecture registry: --arch <id> resolves here. `ARCH_IDS` is the
+port's copy of `repro.configs`' assigned list; `PORT_ARCH_IDS` are the
+architectures only the port runs."""
 from repro_torch.configs.base import ArchConfig, SHAPES
 
 
@@ -15,10 +16,14 @@ ARCH_IDS = [
     "mamba2-780m", "paligemma-3b",
 ]
 
+# layers of different kinds (`ArchConfig.mixer_pattern`)
+PORT_ARCH_IDS = ["granite-4.0-h-micro"]
+
 
 def get_config(arch: str) -> ArchConfig:
-    if arch not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
+    if arch not in ARCH_IDS + PORT_ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; choose from "
+                       f"{ARCH_IDS + PORT_ARCH_IDS}")
     return _load(arch.replace("-", "_").replace(".", "_"))
 
 
@@ -26,4 +31,5 @@ def all_configs() -> dict[str, ArchConfig]:
     return {a: get_config(a) for a in ARCH_IDS}
 
 
-__all__ = ["ArchConfig", "SHAPES", "ARCH_IDS", "get_config", "all_configs"]
+__all__ = ["ArchConfig", "SHAPES", "ARCH_IDS", "PORT_ARCH_IDS", "get_config",
+           "all_configs"]

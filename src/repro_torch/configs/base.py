@@ -56,6 +56,18 @@ class ArchConfig:
     n_patches: int = 256            # vlm stub: number of image patches
     patch_dim: int = 1152           # vlm stub: precomputed patch embedding dim
     tie_embeddings: bool = True
+    # Port-only fields (the JAX package's ArchConfig has none; their
+    # defaults leave the ten assigned archs as the reference runs them).
+    # Layers of different kinds (granite-4.0-h): each layer's mixer,
+    # "ssm" (Mamba-2) or "attention", cycled over the layers; each kind
+    # keeps a stack of leaves of its own. () = the family's one block.
+    mixer_pattern: tuple = ()
+    rope: bool = True                # False: NoPE, no positional encoding
+    attn_scale: float = 0.0         # softmax scale; 0 -> 1/sqrt(head_dim)
+    embed_scale: float = 1.0        # the token embedding is multiplied by it
+    residual_scale: float = 1.0     # each sublayer's output, before its add
+    logit_divisor: float = 1.0      # the logits are divided by it
+    norm_eps: float = 1e-6          # RMSNorm epsilon
     # which assigned shapes this arch skips (the reason beside each config)
     skip_shapes: tuple = ()
     # provenance
@@ -84,6 +96,13 @@ class ArchConfig:
         """Per-layer attention kind ('full'|'sw'|'ssm') cycling the pattern."""
         pat = self.attn_pattern
         return [pat[i % len(pat)] for i in range(self.n_layers)]
+
+    def layer_mixers(self) -> list[str]:
+        """Per-layer mixer kind cycling `mixer_pattern` ([] without one:
+        every layer is the family's one block)."""
+        pat = self.mixer_pattern
+        return [pat[i % len(pat)] for i in range(self.n_layers)] if pat \
+            else []
 
     def is_global_flags(self) -> torch.Tensor:
         """float32[L]: 1.0 where the layer uses FULL attention."""
@@ -141,7 +160,8 @@ class ArchConfig:
         """Reduced same-family config for CPU smoke tests."""
         return dataclasses.replace(
             self,
-            n_layers=min(self.n_layers, 2),
+            # a pattern of layer kinds keeps one whole period
+            n_layers=min(self.n_layers, max(2, len(self.mixer_pattern))),
             d_model=128,
             n_heads=min(self.n_heads, 4) if self.n_heads else 0,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
@@ -165,15 +185,19 @@ class ArchConfig:
         n = self.vocab * d                              # embed (tied head)
         if not self.tie_embeddings:
             n += self.vocab * d
+        hd = self.head_dim_
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        din = self.ssm_expand * self.d_model
+        ssm = d * (2 * din + 2 * self.ssm_state) + din * d \
+            + self.conv_width * (din + 2 * self.ssm_state)
         per = 0
-        if self.has_attention:
-            hd = self.head_dim_
-            per += d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
-                + self.n_heads * hd * d
-        if self.has_ssm:
-            din = self.ssm_expand * self.d_model
-            per += d * (2 * din + 2 * self.ssm_state) + din * d \
-                + self.conv_width * (din + 2 * self.ssm_state)
+        if self.mixer_pattern:                   # each layer its own mixer
+            mixers = self.layer_mixers()
+            n += (mixers.count("attention") * attn
+                  + mixers.count("ssm") * ssm)
+        else:
+            per += attn * self.has_attention + ssm * self.has_ssm
         if self.n_experts:
             per += d * self.n_experts \
                 + self.n_experts * 3 * d * self.d_ff

@@ -30,12 +30,14 @@ class SSMSpec(NamedTuple):
     head_dim: int      # P
     state: int         # N
     conv_width: int
+    norm_eps: float = 1e-6   # the gated RMSNorm's epsilon
 
 
 def spec_from_cfg(cfg) -> SSMSpec:
     d_inner = cfg.ssm_expand * cfg.d_model
     return SSMSpec(cfg.d_model, d_inner, d_inner // cfg.ssm_head_dim,
-                   cfg.ssm_head_dim, cfg.ssm_state, cfg.conv_width)
+                   cfg.ssm_head_dim, cfg.ssm_state, cfg.conv_width,
+                   cfg.norm_eps)
 
 
 # ------------------------------------------------------------------------ init
@@ -164,7 +166,7 @@ def mamba2_train(p, s: SSMSpec, x: torch.Tensor, *, chunk: int = 256,
     y, final = ssd_chunked(xh, dtA, dt, Bm, Cm, chunk=chunk)
     y = y + xh.to(F32) * p["D"].to(F32)[None, None, :, None]
     y = y.reshape(B, S, s.d_inner)
-    y = nn.rmsnorm_apply(p["norm"], y * nn.silu(z.to(F32)))
+    y = nn.rmsnorm_apply(p["norm"], y * nn.silu(z.to(F32)), eps=s.norm_eps)
     out = out_proj(y.to(dtype))
     if return_state:
         W1 = s.conv_width - 1
@@ -202,7 +204,7 @@ def mamba2_decode(p, s: SSMSpec, x: torch.Tensor, state: torch.Tensor,
     y = torch.einsum("bn,bhpn->bhp", Cm, new_state)
     y = y + xh.to(F32) * p["D"].to(F32)[None, :, None]
     y = y.reshape(B, s.d_inner)
-    y = nn.rmsnorm_apply(p["norm"], y * nn.silu(z.to(F32)))
+    y = nn.rmsnorm_apply(p["norm"], y * nn.silu(z.to(F32)), eps=s.norm_eps)
     out = out_proj(y.to(dtype))
     return out[:, None, :].to(x.dtype), new_state, new_conv_state
 

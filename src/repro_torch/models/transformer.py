@@ -10,6 +10,10 @@ coordinates in the reference's order:
   moe    : attn + MoE                          (grok-1, qwen3-moe)
   ssm    : mamba2 block only                   (mamba2-780m)
   hybrid : parallel attn+SSM heads, then MLP   (hymba)
+  hybrid stack : layers of two kinds in a cycled pattern
+           (`cfg.mixer_pattern`), each a Mamba-2 or an attention mixer
+           then a gated MLP, each sublayer's output scaled by
+           `residual_scale` before its add      (granite-4.0-h)
   audio  : non-causal attn + MLP encoder       (hubert)
   vlm    : prefix-LM decoder over [patches; text]  (paligemma)
 
@@ -17,6 +21,17 @@ Mixed local/global attention (gemma3's 5:1, hymba's 3 full layers) gives
 each layer its window: sliding-window layers `cfg.window`, full layers
 FULL_WINDOW. The layers run as a Python loop over the stack; with `remat`
 each block is recomputed in the backward pass (`torch.utils.checkpoint`).
+Each layer's forward is the span `lm.layer.<mixer>` (`obs.profiling`):
+"ssm", "attention" or "parallel" (hymba).
+
+A hybrid stack keeps one stack of leaves per layer kind, under
+`layers/<kind>` ([L_kind, ...] each), and runs the layers in pattern
+order, each taking the next layer of its kind's stack. Its attention may
+drop RoPE (`cfg.rope`, NoPE) and set the softmax scale (`attn_scale`);
+µP multipliers scale the embedding (`embed_scale`) and divide the logits
+(`logit_divisor`). Only the one-device train path runs it: prefill,
+decode and the mesh path raise for any config that sets one of these
+fields (`TRAIN_ONLY`).
 
 The LM loss is a sequence-chunked cross-entropy whose logits are taken
 in bf16, as the reference takes them, whatever the compute dtype.
@@ -93,6 +108,7 @@ from repro_torch.models.attention import (FULL_WINDOW, decode_attention,
                                           decode_attention_sharded,
                                           flash_attention, quantize_rows,
                                           rope)
+from repro_torch.obs.profiling import annotate
 
 F32 = torch.float32
 # the mesh axis the weights' feature dims are sharded over on the tp
@@ -106,24 +122,62 @@ def _norm_init(cfg, d, device=None):
 
 
 def _norm_apply(cfg, p, x):
-    return nn.rmsnorm_apply(p, x) if cfg.norm_type == "rms" \
-        else nn.layernorm_apply(p, x)
+    return nn.rmsnorm_apply(p, x, eps=cfg.norm_eps) \
+        if cfg.norm_type == "rms" else nn.layernorm_apply(p, x)
+
+
+def _mixer(cfg) -> str:
+    """The mixer of a one-kind stack's layers."""
+    if cfg.parallel_ssm:
+        return "parallel"
+    return "ssm" if cfg.has_ssm else "attention"
+
+
+def _residual(cfg, x, y):
+    """x + y, y scaled by `cfg.residual_scale` first where it is not 1."""
+    r = cfg.residual_scale
+    return x + y if r == 1.0 else x + y * r
+
+
+def _rope(cfg, x, positions):
+    """RoPE on q or k [.., S, heads, hd]; x itself under NoPE."""
+    return rope(x, positions, cfg.rope_theta) if cfg.rope else x
+
+
+# port-only ArchConfig fields that only the one-device train path
+# honours: prefill, decode and the mesh path raise where one is set
+TRAIN_ONLY = ("mixer_pattern", "rope", "attn_scale", "embed_scale",
+              "residual_scale", "logit_divisor")
+
+
+def _check_ported(cfg, what: str):
+    """Raise for `what` where `cfg` sets a field of TRAIN_ONLY."""
+    fields = ArchConfig.__dataclass_fields__
+    set_ = [f for f in TRAIN_ONLY if getattr(cfg, f) != fields[f].default]
+    if set_:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is not ported for {', '.join(set_)}; "
+            f"only the one-device train path (LM.loss) is")
 
 
 # ------------------------------------------------------------------ block init
-def block_init(gen: torch.Generator, cfg: ArchConfig, *, device=None) -> dict:
-    """One layer's parameters (the reference's tree, unstacked)."""
+def block_init(gen: torch.Generator, cfg: ArchConfig, *, kind=None,
+               device=None) -> dict:
+    """One layer's parameters (the reference's tree, unstacked); `kind`
+    ("ssm" | "attention") is a hybrid stack's layer kind."""
     d = cfg.d_model
     hd = cfg.head_dim_
     lin = lambda i, o, **kw: nn.linear_init(gen, i, o, device=device, **kw)
     p: dict[str, Any] = {}
-    if cfg.has_attention:
+    attn = cfg.has_attention if kind is None else kind == "attention"
+    ssm = cfg.has_ssm if kind is None else kind == "ssm"
+    if attn:
         p["attn_norm"] = _norm_init(cfg, d, device)
         p["wq"] = lin(d, cfg.n_heads * hd, use_bias=False)
         p["wk"] = lin(d, cfg.n_kv_heads * hd, use_bias=False)
         p["wv"] = lin(d, cfg.n_kv_heads * hd, use_bias=False)
         p["wo"] = lin(cfg.n_heads * hd, d, use_bias=False)
-    if cfg.has_ssm:
+    if ssm:
         p["ssm_norm"] = _norm_init(cfg, d, device)
         p["ssm"] = m2.mamba2_init(gen, m2.spec_from_cfg(cfg), device=device)
     if cfg.n_experts:
@@ -206,8 +260,8 @@ def _qkv(cfg, p, h, positions, dtype, region, collect: bool):
     q = _col_whole(p["wq"], h, region, H * hd, dtype)
     k = _col_whole(p["wk"], h, region, KV * hd, dtype)
     v = _col_whole(p["wv"], h, region, KV * hd, dtype)
-    q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+    q = _rope(cfg, q.reshape(B, S, H, hd), positions)
+    k = _rope(cfg, k.reshape(B, S, KV, hd), positions)
     v = v.reshape(B, S, KV, hd)
     if not split:
         return q, k, v, (k, v), None
@@ -234,7 +288,9 @@ def _attn_full(cfg, p, x, window, *, positions, dtype, prefix_len=0,
     S = h.shape[1]
     q, k, v, kv, cols = _qkv(cfg, p, h, positions, dtype, region, collect)
     o = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                        prefix_len=prefix_len).reshape(B, S, -1)
+                        prefix_len=prefix_len,
+                        softmax_scale=cfg.attn_scale or None
+                        ).reshape(B, S, -1)
     out = spmd.row_parallel(p["wo"], o if cols is None else o[..., cols],
                             region, cfg.n_heads * hd, dtype=dtype)
     if not collect:
@@ -364,10 +420,13 @@ def _ssm_full(cfg, p, x, *, dtype, collect_cache, region):
 
 
 def block_train(cfg: ArchConfig, p, x, window, *, positions, dtype,
-                prefix_len=0, collect_cache: bool = False, region=None):
-    """Full-sequence block. Returns (x, cache_layer|None)."""
+                prefix_len=0, collect_cache: bool = False, region=None,
+                kind=None):
+    """Full-sequence block (of a hybrid stack's layer `kind`). Returns
+    (x, cache_layer|None)."""
     cache = {}
-    if cfg.parallel_ssm:                      # hymba: attn ‖ ssm on same input
+    mixer = kind or _mixer(cfg)
+    if mixer == "parallel":                   # hymba: attn ‖ ssm on same input
         a_out, kv = _attn_full(cfg, p, x, window, positions=positions,
                                dtype=dtype, prefix_len=prefix_len,
                                region=region, collect=collect_cache)
@@ -376,23 +435,23 @@ def block_train(cfg: ArchConfig, p, x, window, *, positions, dtype,
         if collect_cache:
             cache.update(k=kv[0], v=kv[1], ssm=state[0], conv=state[1])
         x = x + 0.5 * (a_out + s_out)
-    elif cfg.has_ssm:                         # mamba2: SSM is the mixer
+    elif mixer == "ssm":                      # mamba2: SSM is the mixer
         s_out, state = _ssm_full(cfg, p, x, dtype=dtype,
                                  collect_cache=collect_cache, region=region)
         if collect_cache:
             cache.update(ssm=state[0], conv=state[1])
-        x = x + s_out
+        x = _residual(cfg, x, s_out)
     else:
         a_out, kv = _attn_full(cfg, p, x, window, positions=positions,
                                dtype=dtype, prefix_len=prefix_len,
                                region=region, collect=collect_cache)
-        x = x + a_out
+        x = _residual(cfg, x, a_out)
         if collect_cache:
             cache.update(k=kv[0], v=kv[1])
 
     f = _ffn(cfg, p, x, dtype=dtype, region=region)
     if f is not None:
-        x = x + f
+        x = _residual(cfg, x, f)
     return x, (cache if collect_cache else None)
 
 
@@ -486,6 +545,7 @@ class LM:
         mesh = _mesh_of(params)
         if mesh is None:
             return None
+        _check_ported(self.cfg, "the mesh path")
         return spmd.Region(mesh, B=B, S=S, batch_axes=self.batch_axes,
                            seq_axis=self.act_seq_axis,
                            moe_axes=self.moe_dispatch_axes,
@@ -547,8 +607,17 @@ class LM:
         return _tree_map(lambda t: gather_replicated(t, keep=keep), lp)
 
     # ------------------------------------------------------------------ init
+    def _stacks(self) -> dict:
+        """{layer kind: its number of layers}: {None: L} for one stack of
+        every layer; a hybrid stack's kinds in sorted (flat) order."""
+        mixers = self.cfg.layer_mixers()
+        if not mixers:
+            return {None: self.cfg.n_layers}
+        return {k: mixers.count(k) for k in sorted(set(mixers))}
+
     def _tree(self, gen, device) -> dict:
-        """The parameter tree with ONE layer under "layers"."""
+        """The parameter tree with ONE layer under "layers" (one layer of
+        each kind under "layers/<kind>" in a hybrid stack)."""
         cfg = self.cfg
         params: dict[str, Any] = {}
         if cfg.frontend in ("tokens", "patches"):
@@ -562,18 +631,25 @@ class LM:
         if cfg.frontend == "patches":
             params["patch_proj"] = nn.linear_init(gen, cfg.patch_dim,
                                                   cfg.d_model, device=device)
-        params["layers"] = block_init(gen, cfg, device=device)
+        stacks = self._stacks()
+        params["layers"] = block_init(gen, cfg, device=device) \
+            if None in stacks else {
+                k: block_init(gen, cfg, kind=k, device=device)
+                for k in stacks}
         params["final_norm"] = _norm_init(cfg, cfg.d_model, device)
         return params
 
     def param_spec(self) -> list:
         """[(path, shape)] of the parameter tree in flatten order, layer
         leaves stacked [L, ...] (computed on the `meta` device)."""
-        L = self.cfg.n_layers
+        stacks = self._stacks()
         spec = []
         for path, leaf in C._leaves(self._tree(None, "meta")):
             shape = tuple(leaf.shape)
-            spec.append((path, (L,) + shape if path[0] == "layers" else shape))
+            if path[0] == "layers":
+                shape = (stacks[None if None in stacks else path[1]],) \
+                    + shape
+            spec.append((path, shape))
         return spec
 
     def init(self, gen: torch.Generator, device=None) -> dict:
@@ -586,15 +662,18 @@ class LM:
         params = C.unflatten_pytree(
             torch.empty(n, dtype=self.param_dtype, device=device), spec)
         top = self._tree(gen, device)
-        layers = top.pop("layers")
+        first = top.pop("layers")
         for path, leaf in C._leaves(top):
             _get(params, path).copy_(leaf)
         del top
-        for i in range(self.cfg.n_layers):
-            if i:
-                layers = block_init(gen, self.cfg, device=device)
-            for path, leaf in C._leaves(layers):
-                _get(params["layers"], path)[i].copy_(leaf)
+        for kind, n in self._stacks().items():
+            dst = params["layers"] if kind is None \
+                else params["layers"][kind]
+            for i in range(n):
+                layer = (first if kind is None else first[kind]) if not i \
+                    else block_init(gen, self.cfg, kind=kind, device=device)
+                for path, leaf in C._leaves(layer):
+                    _get(dst, path)[i].copy_(leaf)
         return params
 
     # ------------------------------------------------------------- internals
@@ -603,28 +682,39 @@ class LM:
         return [cfg.window if k == "sw" else FULL_WINDOW
                 for k in cfg.layer_kinds()]
 
+    def _layers(self, params, region) -> list:
+        """(kind, the layer's parameters) of every layer in order: a
+        hybrid stack's layer takes the next layer of its kind's stack."""
+        stacks = self._stacks()
+        if None not in stacks:
+            per = {k: iter(_unstack(params["layers"][k], n))
+                   for k, n in stacks.items()}
+            return [(k, next(per[k])) for k in self.cfg.layer_mixers()]
+        layers = _unstack(params["layers"], self.cfg.n_layers) \
+            if region is None else self._layer_shards(params["layers"])
+        return [(None, lp) for lp in layers]
+
     def _stack(self, params, x, *, positions, prefix_len=0,
                collect_cache=False, region=None):
         cfg = self.cfg
         caches = []
-        if region is None:
-            layers = _unstack(params["layers"], cfg.n_layers)
-            gather = lambda lp: lp
-        else:
-            layers = self._layer_shards(params["layers"])
-            gather = lambda lp: self._gather_layer(lp, region)
-        for lp, w in zip(layers, self._windows()):
+        gather = (lambda lp: lp) if region is None \
+            else (lambda lp: self._gather_layer(lp, region))
+        for (kind, lp), w in zip(self._layers(params, region),
+                                 self._windows()):
             # the gather runs inside the remat'd function, so the
             # backward gathers the layer again: one layer in flight
-            run = lambda h, lp=lp, w=w: block_train(
+            run = lambda h, lp=lp, w=w, kind=kind: block_train(
                 cfg, gather(lp), h, w, positions=positions,
                 dtype=self.dtype, prefix_len=prefix_len,
-                collect_cache=collect_cache, region=region)
-            if self.remat and torch.is_grad_enabled() and not collect_cache:
-                x, c = torch.utils.checkpoint.checkpoint(
-                    run, x, use_reentrant=False)
-            else:
-                x, c = run(x)
+                collect_cache=collect_cache, region=region, kind=kind)
+            with annotate("lm.layer." + (kind or _mixer(cfg))):
+                if self.remat and torch.is_grad_enabled() \
+                        and not collect_cache:
+                    x, c = torch.utils.checkpoint.checkpoint(
+                        run, x, use_reentrant=False)
+                else:
+                    x, c = run(x)
             caches.append(c)
         x = _norm_apply(cfg, params["final_norm"], x)
         if not collect_cache:
@@ -660,6 +750,8 @@ class LM:
         else:
             x, split = self._lookup(params["embed"], batch["tokens"],
                                     region)
+        if cfg.embed_scale != 1.0:
+            x = x * cfg.embed_scale
         if region is None:
             return x, torch.arange(x.shape[1], device=x.device), prefix
         return region.seq_out(x, partial=split), \
@@ -729,6 +821,9 @@ class LM:
             split = spmd.is_shard(region, emb.shape[0], cfg.vocab)
             e16 = emb.to(torch.bfloat16)
             logits = lambda hc: (hc.to(torch.bfloat16) @ e16.T).to(F32)
+        if cfg.logit_divisor != 1.0:
+            z_of = logits
+            logits = lambda hc: z_of(hc) / cfg.logit_divisor
         P = cfg.n_patches if cfg.frontend == "patches" else 0
         S = h.shape[1] if region is None else region.S
         s0, s1 = (0, S) if region is None else (region.s0, region.s1)
@@ -758,6 +853,7 @@ class LM:
         DTensors: logits batch-sharded, the cache laid out as the ranks
         computed it (batch over the batch axes, the KV sequence over the
         sequence axis)."""
+        _check_ported(self.cfg, "prefill")
         lead = next(iter(batch.values()))
         region = self._region(params, lead.shape[0], self._seq_len(batch))
         if region is not None:
@@ -816,6 +912,7 @@ class LM:
         that position of `cache` in place; returns (logits [B, 1, vocab],
         cache)."""
         cfg = self.cfg
+        _check_ported(cfg, "decode")
         region = self._region(params, token.shape[0], 1)
         if region is not None:
             return self._decode_sharded(params, cache, token, cur_index,
@@ -856,6 +953,7 @@ class LM:
     def init_cache(self, B: int, S: int, *, dtype=None, device=None) -> dict:
         """Zeroed cache with leading layer dim [L, ...]."""
         cfg = self.cfg
+        _check_ported(cfg, "the decode cache")
         dt = dtype or self.dtype
         L = cfg.n_layers
         z = lambda shape, t: torch.zeros(shape, dtype=t, device=device)

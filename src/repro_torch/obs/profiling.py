@@ -41,6 +41,15 @@ see the span tree. The spans and their nesting:
   make_pod_round_step (dist/steps.py)
     pod.round           one datacenter round
       local_round       one pod's local round (local_round.step each step)
+        local_round.step
+          lm.layer.ssm, lm.layer.attention, lm.layer.parallel
+                        one LM layer's forward (`models/transformer.py`,
+                        LM._stack; not its backward, nor a remat'd
+                        recompute), named by its mixer: Mamba-2
+                        (mamba2-780m, granite-4.0-h's Mamba-2 layers),
+                        attention (the attention families, granite's
+                        attention layers) or both in parallel (hymba);
+                        the same spans in any LM call
       pod.sync          the call of the cross-pod sync, whatever wraps it
         pod_sync.compact_pack, pod_sync.all_gather, pod_sync.scatter_apply
                         (compact wire) or pod_sync.dense (dense wire),
