@@ -122,7 +122,8 @@ Phases (any failure exits non-zero and prints no result line):
 13. datacenter  `launch.train.run_datacenter` on the unreduced mamba2-780m
             (2 pods, k 2, δ 0.01, 3 steps, batch 8): finite loss, comm_mb
             equal to the top-k payload formula, fused_momentum launches ==
-            4 (the α probe) + 3 x 2 x 2; the wall per round split into local
+            4 (the α probe) + 3 x 2 x 2 steps, SSD launches == 15 x 48
+            layers x those 16 steps; the wall per round split into local
             rounds, compression and aggregation, and the peak memory; at
             full width on the card and on the CPU, the gradients of the
             loss with bf16 and with fp32 logits (loss within rtol 1e-4,
@@ -157,7 +158,18 @@ Phases (any failure exits non-zero and prints no result line):
             each, bitwise equal to the one-card sync (params, residuals,
             wire bits); launches per round magnitude_hist 2 +
             compact_blocks 1, and magnitude_hist 2 + ef_topk 1.
-Each of phases 11-16 prints its seconds beside the card's name and power
+17. ssd     the chunked SSD kernels (`kernels/csrc/ssd.cu`) against
+            their plain versions, fp32 with TF32 off: y, the final state
+            and the gradients of xh, dtA, dt, B, C (and of the initial
+            state where given) within relative L2 1e-4, at mamba2-780m's
+            (1 x 2048, H 48, P 64, N 128, chunk 256) and granite's (S
+            4096, H 64) widths, hymba's N 16, the smoke configs' P 32 and
+            a ragged S 100 < chunk; one forward and backward is 15 kernels
+            named ssd_* under torch.profiler; one mamba2-780m layer's
+            `mamba2_train` forward and backward launches them 15 times;
+            forward + backward timed at both main-path widths beside the
+            bound, the plain version and the einsum chain they replaced.
+Each of phases 11-17 prints its seconds beside the card's name and power
 limit.
 
 Kernel launch counts are set to 0 just before each main-path run and read
@@ -166,7 +178,8 @@ do not count. A wrapper counts its calls: a replayed CUDA graph
 launches the kernels it holds without one. The `kernels` line reports
 fused_momentum's launches from `cli` (its eager and captured rounds),
 ef_topk's and magnitude_hist's from `batched`'s topk_threshold run
-(the CLI's engine) and compact_blocks' from `pod`; fused_momentum's
+(the CLI's engine), compact_blocks' from `pod` and the SSD's from
+`datacenter`'s run of the unreduced mamba2-780m; fused_momentum's
 launches on the datacenter path and on the mesh train path, and the
 cross-process sync's launches per round, are printed on lines of their
 own; `meshserve` prints its counts (the serving path launches none of
@@ -589,14 +602,179 @@ def phase_compact(torch, dev: str = "cuda") -> dict:
         max_abs_err=err)
 
 
+# the SSD kernels' shapes: (name, b, S, H, P, N, chunk, initial state);
+# the main path's two widths, hymba's state of 16, the smoke configs' P 32
+# and a ragged chunk (S < chunk: Q = S, no power of two)
+SSD_CASES = (("mamba2-780m", 1, 2048, 48, 64, 128, 256, False),
+             ("granite-4.0-h-micro", 1, 4096, 64, 64, 128, 256, False),
+             ("hymba N 16", 1, 512, 50, 64, 16, 256, True),
+             ("smoke P 32 N 16", 2, 64, 4, 32, 16, 256, True),
+             ("ragged S 100", 2, 100, 3, 64, 128, 256, True))
+# relative L2 error of each output against the plain version, both fp32
+# with TF32 off: the kernels sum in another order (up to H·P = 4096 terms
+# for dB and dC), and A's parallel cumulative sum rounds otherwise than
+# torch.cumsum, which exp(A_q - A_s) carries into every decayed term; the
+# H100's largest reading was 6.2e-6
+SSD_TOL = 1e-4
+
+
+def ssd_inputs(torch, b, S, H, P, N, init, dev, seed=0):
+    """SSD inputs shaped as `mamba2_train` makes them: silu-range x, B and
+    C, dt = softplus(...) and A = -exp(...) per head."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)
+    dt = torch.nn.functional.softplus(rn(b, S, H) - 1.0)
+    A = -torch.exp(rn(H) * 0.5)
+    ins = [rn(b, S, H, P), dt * A, dt, rn(b, S, N), rn(b, S, N),
+           rn(b, H, P, N) if init else None]
+    return ins, rn(b, S, H, P), rn(b, H, P, N)
+
+
+def ssd_work(b, S, H, P, N, Q) -> tuple[float, float]:
+    """(bytes, FLOPs) of the SSD's forward and backward: x, dtA, dt, B, C
+    and dy read once, y, the final state and the five gradients written
+    once; the multiply-adds of G and y's causal product (half of each Q x
+    Q block), the chunk states and y_off, then dS, du's two parts, dG,
+    dC's and dB's state parts and dG's two products."""
+    tri = S * (Q + 1) // 2                  # causal pairs over all chunks
+    fma = (tri * N + 2 * H * S * P * N + H * tri * P          # forward
+           + 4 * H * S * P * N + 2 * H * tri * P + 2 * tri * N)
+    io = 4 * b * (4 * S * H * P + 4 * S * H + 4 * S * N + H * P * N)
+    return io, 2.0 * fma * b
+
+
+def phase_ssd(torch, dev: str = "cuda") -> dict:
+    """The SSD kernels (`kernels/ssd.py`) against their plain versions
+    (forward and the five gradients, and the initial state's where one is
+    given) at SSD_CASES' shapes, fp32 with TF32 off; their names as the
+    trace shows them; `mamba2_train` through them (launch count); time
+    forward + backward at the two main-path widths beside the bound, the
+    plain version and the einsum chain they replaced."""
+    from repro_torch.kernels import ssd as K
+    from repro_torch.models import mamba2 as M
+    from repro_torch.obs.profiling import time_ms
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rel = lambda a, b: ((a.double() - b.double()).norm()
+                        / b.double().norm().clamp_min(1e-30)).item()
+    worst = 0.0
+    for name, b, S, H, P, N, chunk, init in SSD_CASES:
+        Q = min(chunk, S)
+        ins, dy, dfin = ssd_inputs(torch, b, S, H, P, N, init, dev)
+        leaves = [None if t is None else t.clone().requires_grad_(True)
+                  for t in ins]
+        y, fin = K.ssd(*leaves[:5], chunk=chunk, initial_state=leaves[5])
+        torch.autograd.backward([y, fin], [dy, dfin])
+        py, pfin, pA, pprev = K.ssd_fwd_plain(*ins, Q)
+        pg = K.ssd_bwd_plain(ins[0], ins[2], ins[3], ins[4], pA, pprev,
+                             pfin, py, dy, dfin, Q)
+        got = {"y": y, "final": fin, "dx": leaves[0].grad,
+               "d(dtA)": leaves[1].grad, "d(dt)": leaves[2].grad,
+               "dB": leaves[3].grad, "dC": leaves[4].grad}
+        want = {"y": py, "final": pfin, "dx": pg[0], "d(dtA)": pg[1],
+                "d(dt)": pg[2], "dB": pg[3], "dC": pg[4]}
+        if init:
+            got["d(init)"], want["d(init)"] = leaves[5].grad, pg[5]
+        errs = {k: rel(got[k], want[k]) for k in got}
+        worst = max(worst, *errs.values())
+        msg = (f"[ssd] {name} (b {b}, S {S}, H {H}, P {P}, N {N}, Q {Q}): "
+               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if not all(math.isfinite(v) and v <= SSD_TOL for v in errs.values()):
+            fail(msg)
+        log(msg)
+    # the trace's kernel names (the benchmark's ssd_kernel_ms reads them)
+    b, S, H, P, N, chunk, _ = SSD_CASES[0][1:]
+    ins, dy, dfin = ssd_inputs(torch, b, S, H, P, N, False, dev, seed=1)
+    leaves = [t.requires_grad_(True) for t in ins[:5]]
+
+    def fwd_bwd(fn):
+        y, _ = fn(*leaves, chunk=chunk)
+        torch.autograd.grad(y, leaves, dy)
+
+    fwd_bwd(K.ssd)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        # a kernel of no interest first: the trace can miss the first
+        # launch after the profiler starts (it missed ssd_cumsum there)
+        torch.zeros(1, device=dev)
+        fwd_bwd(K.ssd)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type
+             == torch.autograd.DeviceType.CUDA and "ssd_" in e.key]
+    n_rows = sum(e.count for e in prof.key_averages() if e.key in names)
+    if n_rows != 15:
+        fail(f"[ssd] a forward and backward ran {n_rows} ssd_ kernels "
+             f"({names}), not 15")
+    log(f"[ssd] one forward + backward: {n_rows} kernels named ssd_*: "
+        f"{sorted(names)}")
+    # the main path: one mamba2-780m layer's mamba2_train, forward and
+    # backward, through the kernels
+    s = M.SSMSpec(1536, 3072, 48, 64, 128, 4)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = M.mamba2_init(gen, s, device=dev)
+    x = torch.randn((1, 2048, 1536), device=dev, generator=gen,
+                    requires_grad=True)
+    K.ssd.launches = 0
+    M.mamba2_train(p, s, x, dtype=torch.float32).square().mean().backward()
+    torch.cuda.synchronize()
+    launches = K.ssd.launches
+    if launches != 15:
+        fail(f"[ssd] mamba2_train launched {K.ssd.launches} SSD kernels, "
+             f"not 5 forward + 10 backward")
+    log(f"[ssd] mamba2_train (mamba2-780m layer, 1 x 2048) forward and "
+        f"backward: {K.ssd.launches} SSD kernel launches")
+    rows = {}
+    for name, b, S, H, P, N, chunk, _ in SSD_CASES[:2]:
+        ins, dy, _ = ssd_inputs(torch, b, S, H, P, N, False, dev, seed=2)
+        leaves = [t.requires_grad_(True) for t in ins[:5]]
+        Q = min(chunk, S)
+
+        def fwd_bwd_at(fn, leaves=leaves, dy=dy, chunk=chunk):
+            y, _ = fn(*leaves, chunk=chunk)
+            torch.autograd.grad(y, leaves, dy)
+
+        def plain(ins=ins, dy=dy, Q=Q):
+            y, fin, A, prev = K.ssd_fwd_plain(*ins[:5], None, Q)
+            K.ssd_bwd_plain(ins[0], ins[2], ins[3], ins[4], A, prev, fin,
+                            y, dy, None, Q)
+
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: K.ssd(*ins[:5], chunk=chunk))
+            plain_ms = time_ms(plain)
+        # the kernels' own device time (time_ms also holds whatever host
+        # time autograd and the launches take beyond it)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(5):
+                fwd_bwd_at(K.ssd)
+            torch.cuda.synchronize()
+        device_ms = sum(e.device_time_total for e in prof.key_averages()
+                        if "ssd_" in e.key) / 5e3
+        row = dict(ms=time_ms(lambda: fwd_bwd_at(K.ssd)), plain_ms=plain_ms,
+                   library_ms=None, fwd_ms=fwd_ms, device_ms=device_ms,
+                   einsum_ms=time_ms(lambda: fwd_bwd_at(M.ssd_einsum)),
+                   bound=bound(*ssd_work(b, S, H, P, N, Q)))
+        rows[name] = row
+        log(f"[time] ssd {name}: forward + backward {row['ms']:.4f} ms "
+            f"(forward {fwd_ms:.4f}; the kernels' device time "
+            f"{device_ms:.4f}), bound {row['bound'][0]:.4f} ms "
+            f"({row['bound'][1]}), plain {plain_ms:.4f} ms, einsum chain + "
+            f"autograd {row['einsum_ms']:.4f} ms")
+    log(f"[ssd] {time.perf_counter() - t0:.1f}s on {card(dev)}")
+    return {"rows": rows, "launches": launches, "max_rel_l2": worst}
+
+
 def _wrappers() -> dict:
     from repro_torch.kernels.compact_topk import compact_blocks
     from repro_torch.kernels.ef_topk import ef_topk
     from repro_torch.kernels.fused_momentum import fused_momentum
     from repro_torch.kernels.magnitude_hist import magnitude_hist
+    from repro_torch.kernels.ssd import ssd
     return {"fused_momentum": fused_momentum, "ef_topk": ef_topk,
             "magnitude_hist": magnitude_hist,
-            "compact_blocks": compact_blocks}
+            "compact_blocks": compact_blocks, "ssd": ssd}
 
 
 def reset_counts() -> None:
@@ -998,7 +1176,7 @@ def phase_pod(torch, dev: str = "cuda") -> dict:
     outs, seen = [], []
     want = {"compact_blocks": n_pods * n_shards,
             "magnitude_hist": 2 * n_pods * n_shards,
-            "fused_momentum": n_pods * LOCAL_K, "ef_topk": 0}
+            "fused_momentum": n_pods * LOCAL_K, "ef_topk": 0, "ssd": 0}
     batches = [pr.draw() for _ in range(POD_ROUNDS)]
     if dev == "cuda":
         torch.cuda.synchronize()
@@ -1064,7 +1242,8 @@ def phase_pod(torch, dev: str = "cuda") -> dict:
         torch.cuda.synchronize()
     c = counts()
     dwant = {"compact_blocks": 0, "magnitude_hist": 2 * n_pods,
-             "fused_momentum": n_pods * LOCAL_K, "ef_topk": n_pods}
+             "fused_momentum": n_pods * LOCAL_K, "ef_topk": n_pods,
+             "ssd": 0}
     log(f"[pod] dense round: loss {float(loss):.6f}, launches {c}")
     if c != dwant or not math.isfinite(float(loss)) \
             or not bool(torch.isfinite(new_pb).all()):
@@ -1477,7 +1656,8 @@ def _dc_full_width_witness(torch, dev: str, cfg, k: int, loss: float,
     _reset_peak(torch, dev)
 
 
-def phase_datacenter(torch, dev: str = "cuda", cfg=None) -> int:
+def phase_datacenter(torch, dev: str = "cuda",
+                     cfg=None) -> tuple[int, int]:
     """`launch.train.run_datacenter` on the unreduced mamba2-780m (48
     layers, d_model 1536, ~0.78 B parameters), 2 pods, --local-k 2
     --rate 0.01 --steps 3, and --batch-size 8 in place of the CLI's 32 (a
@@ -1485,19 +1665,23 @@ def phase_datacenter(torch, dev: str = "cuda", cfg=None) -> int:
     equal to steps x pods x the payload bits of a top-k keeping
     round(0.01·d) coordinates (values and int32 indices, 64 bits each,
     rounded to fp32 as the reference does, plus the 32-bit count header);
-    fused_momentum launches == the α probe's 4 steps + steps x pods x k.
+    fused_momentum launches == the α probe's 4 steps + steps x pods x k,
+    and SSD kernel launches == 15 (5 forward, 10 backward) x the Mamba-2
+    layers x those steps (remat is off, so no forward runs twice).
     Prints the wall per round split into local rounds, compression and
     aggregation, and the peak memory. Then `_dc_full_width_witness`, and
     the smoke config on the card and on the CPU from the same weights:
     identical comm_mb, loss within rtol 1e-3. Returns the run's
-    fused_momentum launches."""
+    fused_momentum and SSD launches."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import compression as C
     from repro_torch.launch import train
-    from repro_torch.models.transformer import LM
+    from repro_torch.models.transformer import LM, _mixer
     from repro_torch.obs.profiling import PhaseTimers
     cfg = cfg or get_config("mamba2-780m")
+    n_ssd = sum(m in ("ssm", "parallel") for m in
+                cfg.layer_mixers() or [_mixer(cfg)] * cfg.n_layers)
     steps, pods, k, rate = 3, 2, 2, 0.01
     d = sum(int(np.prod(s)) for _, s in LM(cfg).param_spec())
     kept = C.num_keep(d, rate)
@@ -1527,7 +1711,11 @@ def phase_datacenter(torch, dev: str = "cuda", cfg=None) -> int:
     if dev == "cuda" and c["fused_momentum"] != want_fm:
         fail(f"datacenter: fused_momentum launched {c['fused_momentum']} "
              f"times, expected {want_fm}")
-    fm = c["fused_momentum"]
+    want_ssd = 15 * n_ssd * want_fm
+    if dev == "cuda" and c["ssd"] != want_ssd:
+        fail(f"datacenter: SSD kernels launched {c['ssd']} times, expected "
+             f"15 x {n_ssd} Mamba-2 layers x {want_fm} steps = {want_ssd}")
+    fm, n_ssd_launches = c["fused_momentum"], c["ssd"]
     _reset_peak(torch, dev)
     _dc_full_width_witness(torch, dev, cfg, k, res["loss"],
                            ["--rate", str(rate), "--batch-size", "8"])
@@ -1540,7 +1728,7 @@ def phase_datacenter(torch, dev: str = "cuda", cfg=None) -> int:
     if on_card["comm_mb"] != on_cpu["comm_mb"] or \
             abs(on_card["loss"] - on_cpu["loss"]) > 1e-3 * abs(on_cpu["loss"]):
         fail(f"datacenter parity: card {on_card} vs CPU {on_cpu}")
-    return fm
+    return fm, n_ssd_launches
 
 # ------------------------------------------------------------ the mesh layer
 TRAIN_ARCH = "gemma3-4b"
@@ -2052,14 +2240,15 @@ def main() -> int:
         phase_podparity(torch)
         phase_lm(torch)
         phase_serve(torch)
-        dc_fm = phase_datacenter(torch)
+        dc_fm, dc_ssd = phase_datacenter(torch)
         train_fm = phase_train(torch)
         phase_meshserve(torch)
         sync = phase_podsync(torch)
+        ssd = phase_ssd(torch)
     except CheckFailed as e:
         fail(str(e))
     log(f"[datacenter] fused_momentum launches on the datacenter path: "
-        f"{dc_fm}")
+        f"{dc_fm}; SSD kernel launches there: {dc_ssd}")
     log(f"[train] fused_momentum launches on the mesh train path: "
         f"{train_fm}; [podsync] launches per compact round across "
         f"processes: {sync}")
@@ -2087,6 +2276,15 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1], "library_ms": row["library_ms"]})
+    row = ssd["rows"]["mamba2-780m"]
+    kernels.append({
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu", "replaces": None,
+        "launches": dc_ssd, "max_rel_l2": ssd["max_rel_l2"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+        "library_ms": None, "device_ms": row["device_ms"],
+        "einsum_ms": row["einsum_ms"]})
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

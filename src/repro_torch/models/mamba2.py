@@ -7,6 +7,17 @@ chunk states (O(S·Q) compute, O(S/Q) sequential steps, state [H, P, N]
 carried in fp32). Decode is the O(1) per-token recurrence over the same
 state.
 
+On a CUDA tensor `ssd_chunked` runs the hand-written CUDA kernels of
+`kernels/csrc/ssd.cu` through `kernels/ssd.py` (forward and backward). They replace no TPU kernel: the
+reference's SSD is plain `jnp`. They were added because the einsum and
+segsum chain below (`ssd_einsum`) took ~50 launches a layer's forward,
+wrote [b, nc, H, Q, Q] decay matrices to device memory and took several
+times the kernels' device time for a mamba2-780m layer's forward and
+backward on an H100 (PERF.md §6). On this card they are bound by fp32 FMA
+throughput, not bytes; they skip the tiles above the causal diagonal and
+no Q x Q matrix per head leaves registers. A CPU tensor takes the einsum
+chain, as before.
+
 Block layout follows the reference Mamba2 module: in_proj → (z | xBC | dt),
 depthwise causal conv over xBC, SSD, gated RMSNorm, out_proj. n_groups=1.
 """
@@ -18,6 +29,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ssd import ssd as ssd_kernel
 from repro_torch.models import nn
 
 F32 = torch.float32
@@ -80,7 +92,20 @@ def ssd_chunked(xh: torch.Tensor, dtA: torch.Tensor, dtx_scale: torch.Tensor,
     dtx_scale: [b, S, H] input scale (dt)
     Bm,Cm: [b, S, N]     shared across heads (n_groups=1)
     Returns (y [b,S,H,P], final_state [b,H,P,N]).
+    A CUDA tensor goes through `kernels.ssd.ssd` (or raises there).
     """
+    if xh.is_cuda:
+        return ssd_kernel(xh, dtA, dtx_scale, Bm, Cm, chunk=chunk,
+                          initial_state=initial_state)
+    return ssd_einsum(xh, dtA, dtx_scale, Bm, Cm, chunk=chunk,
+                      initial_state=initial_state)
+
+
+def ssd_einsum(xh, dtA, dtx_scale, Bm, Cm, *, chunk: int,
+               initial_state=None):
+    """`ssd_chunked` as einsums over the materialised decay matrices, on
+    any device: the CPU path (the reference's algorithm) and, on a card,
+    the yardstick the kernels are timed against."""
     b, S, H, P = xh.shape
     N = Bm.shape[-1]
     chunk = min(chunk, S)

@@ -271,6 +271,148 @@ def test_ssd_chunked_matches_references(initial):
                        _t(Bm[:, :90]), _t(Cm[:, :90]), chunk=32)
 
 
+# (b, S, H, P, N, chunk, initial state): N in {4, 16}, P in {8, 32}, S a
+# multiple of the chunk, and S < chunk with a chunk (Q = S) that is no
+# power of two
+SSD_CASES = [(2, 96, 3, 8, 4, 32, True), (2, 96, 3, 32, 16, 32, False),
+             (1, 64, 2, 8, 16, 16, True), (2, 40, 3, 32, 4, 64, True),
+             (1, 30, 2, 8, 16, 256, False)]
+
+
+def _rel(a, b):
+    a, b = (np.asarray(t, dtype=np.float64) for t in (a, b))
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernels_plain_decomposition(case):
+    """`kernels.ssd.ssd` on the CPU (the kernels' plain versions and their
+    hand-derived backward, through the custom ops): the forward against
+    the port's einsum chain, both sequential oracles and the JAX package's
+    `ssd_chunked`; every gradient (xh, dtA, dt, B, C and the initial
+    state's) against autograd through the einsum chain and against
+    `jax.vjp` of the JAX package's `ssd_chunked`. Relative L2 1e-5: fp32
+    sums in another order (the decomposition's products over N, P and Q
+    against the einsums'); ~1e-7 is typical."""
+    from repro_torch.kernels import ssd as K
+    b, S, H, P, N, chunk, initial = case
+    xh, dtA, dt, Bm, Cm, st0 = _ssd_inputs(b, S, H, P, N, seed=3)
+    ins = [xh, dtA, dt, Bm, Cm] + ([st0] if initial else [])
+    leaves = [[_t(a).requires_grad_(True) for a in ins] for _ in range(2)]
+    init = lambda ls: ls[5] if initial else None
+    y, fin = K.ssd(*leaves[0][:5], chunk=chunk, initial_state=init(leaves[0]))
+    ey, efin = TM.ssd_chunked(*leaves[1][:5], chunk=chunk,
+                              initial_state=init(leaves[1]))
+    ry, rfin = TM.ssd_reference(*(_t(a) for a in ins[:5]),
+                                initial_state=_t(st0) if initial else None)
+    jy, jfin = JM.ssd_chunked(*(jnp.asarray(a) for a in ins[:5]),
+                              chunk=chunk, initial_state=jnp.asarray(st0)
+                              if initial else None)
+    for want in (ey, ry, np.asarray(jy)):
+        assert _rel(y.detach(), want.detach() if torch.is_tensor(want)
+                    else want) < 1e-5
+    for want in (efin, rfin, np.asarray(jfin)):
+        assert _rel(fin.detach(), want.detach() if torch.is_tensor(want)
+                    else want) < 1e-5
+    rng = np.random.RandomState(4)
+    dy, dfin = _t(rng.randn(*y.shape).astype(np.float32)), \
+        _t(rng.randn(*fin.shape).astype(np.float32))
+    for yy, ff in ((y, fin), (ey, efin)):
+        torch.autograd.backward([yy, ff], [dy, dfin])
+    _, vjp = jax.vjp(
+        lambda *a: JM.ssd_chunked(*a[:5], chunk=chunk, initial_state=a[5]
+                                  if initial else None),
+        *(jnp.asarray(a) for a in ins))
+    jgrads = vjp((jnp.asarray(dy.numpy()), jnp.asarray(dfin.numpy())))
+    for name, got, want, jg in zip(("xh", "dtA", "dt", "B", "C", "init"),
+                                   leaves[0], leaves[1], jgrads):
+        assert _rel(got.grad, want.grad) < 1e-5, name
+        assert _rel(got.grad, np.asarray(jg)) < 1e-5, name
+
+
+def test_ssd_kernels_fake_mode_allocates_outputs_only(monkeypatch):
+    """Under FakeTensorMode (the dry run) `kernels.ssd.ssd` forward and
+    backward run the custom ops' fake versions: outputs and gradients of
+    the right shapes, and no plain version (no [b, nc, H, Q, Q] decay)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import ssd as K
+
+    def ran(*a, **k):
+        raise AssertionError("a plain version ran under FakeTensorMode")
+    monkeypatch.setattr(K, "ssd_fwd_plain", ran)
+    monkeypatch.setattr(K, "ssd_bwd_plain", ran)
+    with FakeTensorMode():
+        x = torch.empty(2, 64, 3, 8, requires_grad=True)
+        dtA = torch.empty(2, 64, 3, requires_grad=True)
+        B = torch.empty(2, 64, 16, requires_grad=True)
+        init = torch.empty(2, 3, 8, 16, requires_grad=True)
+        y, fin = K.ssd(x, dtA, dtA, B, B, chunk=32, initial_state=init)
+        (y.sum() + fin.sum()).backward()
+        assert (y.shape, fin.shape) == (x.shape, init.shape)
+        assert (x.grad.shape, dtA.grad.shape, B.grad.shape,
+                init.grad.shape) == (x.shape, dtA.shape, B.shape, init.shape)
+
+
+def _parent_ssd_chunked(xh, dtA, dtx_scale, Bm, Cm, *, chunk,
+                        initial_state=None):
+    """`ssd_chunked` as the port computed it on every device before the
+    kernels: kept here to pin the CPU path bitwise."""
+    b, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    chunk = min(chunk, S)
+    nc = S // chunk
+    f32 = torch.float32
+    xc = (xh * dtx_scale[..., None]).to(f32).reshape(b, nc, chunk, H, P)
+    Ac = dtA.to(f32).reshape(b, nc, chunk, H)
+    Bc = Bm.to(f32).reshape(b, nc, chunk, N)
+    Cc = Cm.to(f32).reshape(b, nc, chunk, N)
+    A_cum = torch.cumsum(Ac, dim=2)
+    L = torch.exp(TM._segsum(Ac.movedim(-1, -2)))
+    G = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)
+    y_diag = torch.einsum("bcqs,bchqs,bcshp->bcqhp", G, L, xc)
+    decay_states = torch.exp(A_cum[:, :, -1:, :] - A_cum)
+    states = torch.einsum("bcsn,bcsh,bcshp->bchpn", Bc, decay_states, xc)
+    chunk_decay = torch.exp(A_cum[:, :, -1, :])
+    carry = (torch.zeros((b, H, P, N), dtype=f32, device=xh.device)
+             if initial_state is None else initial_state.to(f32))
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)
+    y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc, prev_states,
+                         torch.exp(A_cum))
+    return (y_diag + y_off).reshape(b, S, H, P), carry
+
+
+def test_mamba2_train_cpu_path_unchanged_bitwise(monkeypatch):
+    """On the CPU `mamba2_train` never reaches the kernels' wrapper, and
+    its output, final state and gradients equal, bitwise, those of the
+    same layer computed through the parent's `ssd_chunked`."""
+    from torch.utils._pytree import tree_leaves, tree_map
+    s = TM.SSMSpec(32, 64, 4, 16, 8, 4)
+    gen = torch.Generator().manual_seed(0)
+    p = TM.mamba2_init(gen, s)
+    x = torch.randn((2, 48, 32), generator=gen)
+
+    def run():
+        params = tree_map(lambda v: v.clone().requires_grad_(True), p)
+        xx = x.clone().requires_grad_(True)
+        out, (fin, _) = TM.mamba2_train(params, s, xx, chunk=16,
+                                        dtype=torch.float32,
+                                        return_state=True)
+        (out.square().mean() + fin.square().mean()).backward()
+        return [out, fin, xx.grad] + [v.grad for v in tree_leaves(params)]
+
+    def kernel(*a, **k):
+        raise AssertionError("the CPU path reached the kernels' wrapper")
+    monkeypatch.setattr(TM, "ssd_kernel", kernel)
+    now = run()
+    monkeypatch.setattr(TM, "ssd_chunked", _parent_ssd_chunked)
+    for a, b in zip(now, run()):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------- MoE
 def _jax_route(xf, router, E, k, cf):
     """The reference's routing (`repro.models.moe._dispatch_compute`)."""
