@@ -168,7 +168,7 @@ Phases (any failure exits non-zero and prints no result line):
             named ssd_* under torch.profiler; one mamba2-780m layer's
             `mamba2_train` forward and backward launches them 15 times;
             forward + backward timed at both main-path widths beside the
-            bound, the plain version and the einsum chain they replaced.
+            bound and the plain version.
 Each of phases 11-17 prints its seconds beside the card's name and power
 limit.
 
@@ -648,8 +648,8 @@ def phase_ssd(torch, dev: str = "cuda") -> dict:
     (forward and the five gradients, and the initial state's where one is
     given) at SSD_CASES' shapes, fp32 with TF32 off; their names as the
     trace shows them; `mamba2_train` through them (launch count); time
-    forward + backward at the two main-path widths beside the bound, the
-    plain version and the einsum chain they replaced."""
+    forward + backward at the two main-path widths beside the bound and
+    the plain version."""
     from repro_torch.kernels import ssd as K
     from repro_torch.models import mamba2 as M
     from repro_torch.obs.profiling import time_ms
@@ -689,18 +689,18 @@ def phase_ssd(torch, dev: str = "cuda") -> dict:
     ins, dy, dfin = ssd_inputs(torch, b, S, H, P, N, False, dev, seed=1)
     leaves = [t.requires_grad_(True) for t in ins[:5]]
 
-    def fwd_bwd(fn):
-        y, _ = fn(*leaves, chunk=chunk)
+    def fwd_bwd():
+        y, _ = K.ssd(*leaves, chunk=chunk)
         torch.autograd.grad(y, leaves, dy)
 
-    fwd_bwd(K.ssd)
+    fwd_bwd()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         # a kernel of no interest first: the trace can miss the first
         # launch after the profiler starts (it missed ssd_cumsum there)
         torch.zeros(1, device=dev)
-        fwd_bwd(K.ssd)
+        fwd_bwd()
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages() if e.device_type
              == torch.autograd.DeviceType.CUDA and "ssd_" in e.key]
@@ -732,8 +732,8 @@ def phase_ssd(torch, dev: str = "cuda") -> dict:
         leaves = [t.requires_grad_(True) for t in ins[:5]]
         Q = min(chunk, S)
 
-        def fwd_bwd_at(fn, leaves=leaves, dy=dy, chunk=chunk):
-            y, _ = fn(*leaves, chunk=chunk)
+        def fwd_bwd_at(leaves=leaves, dy=dy, chunk=chunk):
+            y, _ = K.ssd(*leaves, chunk=chunk)
             torch.autograd.grad(y, leaves, dy)
 
         def plain(ins=ins, dy=dy, Q=Q):
@@ -748,20 +748,18 @@ def phase_ssd(torch, dev: str = "cuda") -> dict:
         # time autograd and the launches take beyond it)
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(5):
-                fwd_bwd_at(K.ssd)
+                fwd_bwd_at()
             torch.cuda.synchronize()
         device_ms = sum(e.device_time_total for e in prof.key_averages()
                         if "ssd_" in e.key) / 5e3
-        row = dict(ms=time_ms(lambda: fwd_bwd_at(K.ssd)), plain_ms=plain_ms,
+        row = dict(ms=time_ms(fwd_bwd_at), plain_ms=plain_ms,
                    library_ms=None, fwd_ms=fwd_ms, device_ms=device_ms,
-                   einsum_ms=time_ms(lambda: fwd_bwd_at(M.ssd_einsum)),
                    bound=bound(*ssd_work(b, S, H, P, N, Q)))
         rows[name] = row
         log(f"[time] ssd {name}: forward + backward {row['ms']:.4f} ms "
             f"(forward {fwd_ms:.4f}; the kernels' device time "
             f"{device_ms:.4f}), bound {row['bound'][0]:.4f} ms "
-            f"({row['bound'][1]}), plain {plain_ms:.4f} ms, einsum chain + "
-            f"autograd {row['einsum_ms']:.4f} ms")
+            f"({row['bound'][1]}), plain {plain_ms:.4f} ms")
     log(f"[ssd] {time.perf_counter() - t0:.1f}s on {card(dev)}")
     return {"rows": rows, "launches": launches, "max_rel_l2": worst}
 
@@ -2283,8 +2281,7 @@ def main() -> int:
         "launches": dc_ssd, "max_rel_l2": ssd["max_rel_l2"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
-        "library_ms": None, "device_ms": row["device_ms"],
-        "einsum_ms": row["einsum_ms"]})
+        "library_ms": None, "device_ms": row["device_ms"]})
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

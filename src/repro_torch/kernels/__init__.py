@@ -9,8 +9,8 @@
                             (csrc/compact_blocks.cu, built for sm_90a)
   ssd             CUDA C++  replaces no TPU kernel (the reference's
                             SSD is plain jnp): the Mamba-2 layers'
-                            chunked SSD, forward and backward, behind
-                            models.mamba2.ssd_chunked on a card
+                            chunked SSD, forward and backward, which
+                            models.mamba2.ssd_chunked is on every device
                             (csrc/ssd.cu, built for sm_90a)
 
 Each wrapper takes its plain version (`ref.py`; the SSD's beside it in

@@ -5,8 +5,7 @@ loaded with `ctypes` (no PyTorch headers, so a build takes seconds). Each
 `csrc/<name>.cu` becomes `build/repro_torch_kernels/lib<name>_<hash>.so`
 under the repository root, at first use; the hash covers the source and
 the flags, so an edited source is rebuilt and an unchanged one is loaded
-as it is. `defines` (nvcc's -D) build a variant of a source beside it,
-for measurement. A failed build raises: there is no fallback.
+as it is. A failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ CUDA_SOURCES = ("magnitude_hist", "compact_blocks", "ef_topk", "ssd")
 
 # nvcc's stderr per built source (ptxas register / shared-memory report)
 BUILD_LOG: dict[str, str] = {}
-_LIBS: dict[tuple, ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -41,29 +40,24 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def _flags(defines=()) -> tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def _target(name: str, defines=()) -> tuple[Path, Path]:
+def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(defines)).encode())
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=CUDA_SOURCES, defines=()) -> dict[str, Path]:
+def build(names=CUDA_SOURCES) -> dict[str, Path]:
     """Compile every named source that has no current library, one `nvcc`
-    per source, all started together, each with `defines` (NAME or
-    NAME=VALUE). Returns {name: library path}."""
+    per source, all started together. Returns {name: library path}."""
     out, procs = {}, {}
     for name in names:
-        src, so = _target(name, defines)
+        src, so = _target(name)
         out[name] = so
         if so.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *_flags(defines), "-o", str(tmp), str(src)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, so)
@@ -80,15 +74,12 @@ def build(names=CUDA_SOURCES, defines=()) -> dict[str, Path]:
     return out
 
 
-def load_library(name: str, defines=()) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu` built with `defines`,
-    building it if needed."""
-    key = (name, tuple(defines))
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, building it if needed."""
     with _LOCK:
-        lib = _LIBS.get(key)
+        lib = _LIBS.get(name)
         if lib is None:
-            lib = _LIBS[key] = ctypes.CDLL(
-                str(build((name,), defines)[name]))
+            lib = _LIBS[name] = ctypes.CDLL(str(build((name,))[name]))
         return lib
 
 

@@ -65,18 +65,13 @@ def kernel_op(name: str, impl, fake, *, mutates_args=()):
     the kernel on a card) as the custom op `repro_torch::<name>`, with
     `fake` as its fake implementation. Under `FakeTensorMode` (the dry
     run) the op then allocates only what `fake` returns, the kernel's own
-    outputs, and never runs the plain version's temporaries. A second
-    copy of the port in one process (an A/B of two trees) registers its
-    ops under a suffixed name (a taken name is skipped: some torch
-    versions let `custom_op` replace a registered op's implementation
-    without an error, which would send the first copy's calls to the
-    second's)."""
-    for i in range(1, 100):
-        op_name = name + (f"_{i}" if i > 1 else "")
-        if hasattr(torch.ops.repro_torch, op_name):
-            continue
-        op = torch.library.custom_op(f"repro_torch::{op_name}", impl,
-                                     mutates_args=mutates_args)
-        op.register_fake(fake)
-        return op
-    raise RuntimeError(f"kernel_op: no free name for {name}")
+    outputs, and never runs the plain version's temporaries. Raises if
+    the name is taken: some torch versions let `custom_op` replace a
+    registered op's implementation without an error."""
+    if hasattr(torch.ops.repro_torch, name):
+        raise RuntimeError(f"kernel_op: repro_torch::{name} is already "
+                           f"registered")
+    op = torch.library.custom_op(f"repro_torch::{name}", impl,
+                                 mutates_args=mutates_args)
+    op.register_fake(fake)
+    return op

@@ -1,21 +1,20 @@
-"""Checks of the pod-sync kernels against their plain versions, shared by
-`chip_smoke.py` and `launch/profile_kernels.py`.
+"""Checks of the pod-sync kernels against their plain versions, for
+`chip_smoke.py`.
 
 `check_hist` builds the two edge sets of the threshold solve (49 coarse
 edges, then 129 fine edges between the coarse bracket) for top-k of a
 vector and holds `magnitude_hist` to exact counts on both;
 `check_compact` holds `compact_blocks` to its plain version bit for bit
 on all four outputs; `check_ef` holds `ef_topk` to its plain version bit
-for bit on out, r' and nnz. Each takes the kernel wrapper to check
-(default: this package's), so a measurement can hold another tree's
-kernels to the same plain versions. A mismatch raises `CheckFailed`.
+for bit on out, r' and nnz. Each calls the package's wrapper. A mismatch
+raises `CheckFailed`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import compact_topk, ef_topk, magnitude_hist, ops, ref
 
 
 class CheckFailed(AssertionError):
@@ -51,14 +50,11 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor, *,
     return torch.equal(a.contiguous().view(bits), b.contiguous().view(bits))
 
 
-def check_hist(g: torch.Tensor, what: str, k: int | None = None,
-               hist=None):
+def check_hist(g: torch.Tensor, what: str, k: int | None = None):
     """The coarse (49) and fine (129) edges the threshold solve uses on g
-    for top-k (k = 1% of g by default), each pass of `hist` (default
-    `magnitude_hist`) held to exact counts against the plain version;
-    returns (coarse, fine, t) with t the solve's threshold."""
-    if hist is None:
-        from repro_torch.kernels.magnitude_hist import magnitude_hist as hist
+    for top-k (k = 1% of g by default), each pass of `magnitude_hist`
+    held to exact counts against the plain version; returns (coarse,
+    fine, t) with t the solve's threshold."""
     acc = g.float()
     k = k or max(1, round(0.01 * acc.numel()))
     gmax = acc.abs().max() + 1e-30
@@ -69,7 +65,7 @@ def check_hist(g: torch.Tensor, what: str, k: int | None = None,
     frac = torch.arange(129, dtype=torch.float32, device=g.device) / 128
     fine = torch.clamp(hi - (hi - lo) * frac, min=1e-30)
     for name, e in (("coarse", coarse), ("fine", fine)):
-        diff = (hist(g, e).long()
+        diff = (magnitude_hist.magnitude_hist(g, e).long()
                 - ref.ref_magnitude_hist(g, e).long()).abs().max().item()
         if diff:
             raise CheckFailed(f"magnitude_hist {name} {what}: counts differ "
@@ -77,15 +73,11 @@ def check_hist(g: torch.Tensor, what: str, k: int | None = None,
     return coarse, fine, ops.solve_threshold(acc, k)
 
 
-def check_compact(acc: torch.Tensor, t, budget: int, what: str,
-                  compact=None) -> float:
-    """`compact` (default `compact_blocks`) against the plain version: all
-    four outputs bit for bit (floats compared as their int32 patterns).
-    Returns the largest absolute difference of the float outputs (0.0 when
-    they agree)."""
-    if compact is None:
-        from repro_torch.kernels.compact_topk import compact_blocks as compact
-    got = compact(acc, t, budget=budget)
+def check_compact(acc: torch.Tensor, t, budget: int, what: str) -> float:
+    """`compact_blocks` against the plain version: all four outputs bit
+    for bit (floats compared as their int32 patterns). Returns the largest
+    absolute difference of the float outputs (0.0 when they agree)."""
+    got = compact_topk.compact_blocks(acc, t, budget=budget)
     want = ref.ref_compact_blocks(acc, t, budget)
     err = 0.0
     for g, w, name in zip(got, want, ("vals", "idx", "cnt", "res")):
@@ -104,16 +96,13 @@ def check_compact(acc: torch.Tensor, t, budget: int, what: str,
     return err
 
 
-def check_ef(g: torch.Tensor, r: torch.Tensor, t, what: str,
-             ef=None) -> float:
-    """`ef` (default `ef_topk`) against the plain version: out, r' bit
-    for bit in their dtypes (NaN payloads included), nnz equal, and where
-    g and r are f32 and g + r is finite, out + r' == g + r bit for bit.
-    Returns the largest absolute difference of out and r' over their
-    finite entries (0.0 when they agree)."""
-    if ef is None:
-        from repro_torch.kernels.ef_topk import ef_topk as ef
-    out, res, nnz = ef(g, r, t)
+def check_ef(g: torch.Tensor, r: torch.Tensor, t, what: str) -> float:
+    """`ef_topk` against the plain version: out, r' bit for bit in their
+    dtypes (NaN payloads included), nnz equal, and where g and r are f32
+    and g + r is finite, out + r' == g + r bit for bit. Returns the
+    largest absolute difference of out and r' over their finite entries
+    (0.0 when they agree)."""
+    out, res, nnz = ef_topk.ef_topk(g, r, t)
     ro, rr, rn = ref.ref_ef_topk(g, r, torch.as_tensor(
         t, dtype=torch.float32, device=g.device))
     err = 0.0

@@ -57,18 +57,15 @@
 //   the conversion c10::BFloat16 compiles to on sm_80 and later (round to
 //   nearest even; NaN as the card converts it).
 //
-// Build variants, for measurement (launch/profile_kernels.py --variants):
-// -DQUADS=2, half the loads per thread in flight and twice the CTAs;
-// -DEF_LDG, plain __ldg loads of g and r in place of the evict-first ones.
+// The design was chosen against two quads per thread over twice the CTAs
+// and against plain __ldg loads of g and r.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #define THREADS 256
 #define BLOCKS_PER_SM 4   // resident CTAs per SM the grid is sized for
-#ifndef QUADS
 #define QUADS 4           // quads per thread per step, loaded before use
-#endif
 #define WARPS (THREADS / 32)
 
 // One quad of T as one aligned vector access.
@@ -134,13 +131,9 @@ __device__ __forceinline__ void pack(const float* f, uint2& v) {
                  bf16_bits(f[2]) | (bf16_bits(f[3]) << 16));
 }
 
-// A load of data this kernel reads once (see EF_LDG above).
+// A load of data this kernel reads once: evict-first.
 template <typename V> __device__ __forceinline__ V load_once(const V* p) {
-#ifdef EF_LDG
-  return __ldg(p);
-#else
   return __ldcs(p);
-#endif
 }
 
 // One element: returns keep, sets the shipped value and the residual.

@@ -31,9 +31,7 @@
 //   step's loads before the search of the step before. `grid_size` makes
 //   the grid a multiple of the SM count (4 CTAs per SM at both widths of
 //   the main paths), so the vector is spread evenly over the card. Two
-//   loads per thread over more CTAs measured faster than four over fewer
-//   (build with -DLOADS=4 to measure again: launch/profile_kernels.py
-//   --variants).
+//   loads per thread over more CTAs measured faster than four over fewer.
 // - "First edge reached" is a branch-free binary search over the edges in
 //   shared memory, padded with -inf to `span` (a power of two above
 //   n_edges): the number of leading edges e with !(e <= |x|), which stops
@@ -48,7 +46,7 @@
 //   The copies are summed before the global flush. Integer adds make the
 //   result independent of order. This measured faster than a copy per
 //   warp with __match_any_sync aggregation (one leader add per distinct
-//   bin), which -DHIST_MATCH_ANY builds for measurement.
+//   bin).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -58,9 +56,7 @@
 #define THREADS 256
 #define BLOCKS_PER_SM 4   // resident CTAs per SM the grid is sized for
 #define SMEM_BYTES 40960  // dynamic shared memory per CTA, at most
-#ifndef LOADS
 #define LOADS 2           // 16-byte loads in flight per thread
-#endif
 
 // Elements per 16-byte vector.
 template <typename T> struct Vec;
@@ -102,18 +98,10 @@ __device__ __forceinline__ int search_step(const float* e, int pos, int step,
 
 // Adds one element in bin j (j >= n_edges: no bin) to column `col` of the
 // CTA's bins [n_edges][cols]: its lane's, so lanes of a warp hit distinct
-// banks. Called by all 32 lanes of a warp together.
+// banks.
 __device__ __forceinline__ void count(int* bins, int j, int n_edges,
                                       int cols, int col) {
-#ifdef HIST_MATCH_ANY
-  // the variant: `col` is the warp's; lanes with one bin add once, through
-  // the lowest of them
-  const unsigned peers = __match_any_sync(0xffffffffu, j);
-  if (j < n_edges && (peers & ((1u << (threadIdx.x & 31)) - 1u)) == 0)
-    atomicAdd(&bins[j * cols + col], __popc(peers));
-#else
   if (j < n_edges) atomicAdd(&bins[j * cols + col], 1);
-#endif
 }
 
 // Loads the LOADS vectors of one grid-stride step (lane + u * nthr past
@@ -155,11 +143,7 @@ hist_kernel(const T* __restrict__ g, int head, int64_t nvec, int tail,
   for (int j = threadIdx.x; j < n_edges * cols; j += THREADS) s_bins[j] = 0;
   __syncthreads();
 
-#ifdef HIST_MATCH_ANY
-  const int col = threadIdx.x >> 5;
-#else
   const int col = lane & (cols - 1);
-#endif
   const int half = span >> 1;
 
   // scalar head and tail (fewer than 2 N elements): block 0
@@ -267,16 +251,12 @@ static int launch(const void* g, int head, long long nvec, int tail,
   const int blocks = grid_size(nvec, sms);
   int span = 2;
   while (span <= n_edges) span <<= 1;
-#ifdef HIST_MATCH_ANY
-  const int cols = THREADS / 32;   // a copy per warp: 40 KB at MAX_EDGES
-#else
   // lane columns: 32 where they fit in SMEM_BYTES, else the largest power
   // of two that does (8 at MAX_EDGES)
   int cols = 32;
   while (cols > 1 && sizeof(int) * (size_t)(span + n_edges * cols) >
                          SMEM_BYTES)
     cols >>= 1;
-#endif
   const size_t smem = sizeof(int) * (size_t)(span + n_edges * cols);
   hist_kernel<T><<<blocks, THREADS, smem, s>>>(
       gt, head, (int64_t)nvec, tail, (const float*)edges, n_edges, span,

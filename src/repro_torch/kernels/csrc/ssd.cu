@@ -2,8 +2,8 @@
 // Hopper: the forward in 5 launches and the backward in 10.
 //
 // Replaces no TPU kernel: the reference's `repro.models.mamba2.ssd_chunked`
-// is plain jnp, left to XLA's fusion. Added because its eager port (the
-// einsum and segsum chain, `models.mamba2.ssd_einsum`) set much of the pace
+// is plain jnp, left to XLA's fusion. Written by hand because the same
+// algorithm as an eager einsum and segment-sum chain set much of the pace
 // of the mamba2-780m pod round on the H100: ~50 launches a layer's forward,
 // [b, nc, H, Q, Q] fp32 decay matrices in device memory (100 MB each at
 // 2048 tokens, every layer, again in the backward) and several times these

@@ -54,11 +54,9 @@ _WORKSPACES = StreamWorkspaces(2)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The kernel's library. `defines` (NAME or NAME=VALUE, nvcc's -D)
-    build a variant of it for measurement (`launch.profile_kernels
-    --variants`)."""
-    lib = _build.load_library("ef_topk", defines)
+def _lib() -> ctypes.CDLL:
+    """The kernel's library."""
+    lib = _build.load_library("ef_topk")
     lib.repro_ef_topk.restype = ctypes.c_int
     lib.repro_ef_topk.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -84,11 +82,10 @@ def quad_split(ptrs, itemsizes, n: int) -> tuple[int, int, int]:
 
 
 def _launch(g: torch.Tensor, residual: torch.Tensor,
-            threshold: torch.Tensor, stream,
-            lib: ctypes.CDLL | None = None) -> tuple:
-    """One kernel launch on `stream` (current on g's device), from `lib`
-    (default `_lib()`); returns (out, new_residual, nnz)."""
-    lib = _lib() if lib is None else lib
+            threshold: torch.Tensor, stream) -> tuple:
+    """One kernel launch on `stream` (current on g's device); returns
+    (out, new_residual, nnz)."""
+    lib = _lib()
     n = g.numel()
     out = torch.empty_like(g)
     res = torch.empty_like(residual)

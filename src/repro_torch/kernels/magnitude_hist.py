@@ -46,11 +46,9 @@ _WORKSPACES = StreamWorkspaces(MAX_EDGES + 1)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The kernel's library. `defines` (NAME or NAME=VALUE, nvcc's -D)
-    build a variant of it for measurement (`launch.profile_kernels
-    --variants`)."""
-    lib = _build.load_library("magnitude_hist", defines)
+def _lib() -> ctypes.CDLL:
+    """The kernel's library."""
+    lib = _build.load_library("magnitude_hist")
     lib.repro_magnitude_hist.restype = ctypes.c_int
     lib.repro_magnitude_hist.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -68,11 +66,9 @@ def vector_split(ptr: int, n: int, itemsize: int) -> tuple[int, int, int]:
     return head, nvec, n - head - nvec * (VEC_BYTES // itemsize)
 
 
-def _launch(g: torch.Tensor, edges: torch.Tensor, stream,
-            lib: ctypes.CDLL | None = None) -> torch.Tensor:
-    """One kernel launch on `stream` (current on g's device), from `lib`
-    (default `_lib()`)."""
-    lib = _lib() if lib is None else lib
+def _launch(g: torch.Tensor, edges: torch.Tensor, stream) -> torch.Tensor:
+    """One kernel launch on `stream` (current on g's device)."""
+    lib = _lib()
     n_edges = edges.numel()
     ws = _WORKSPACES.get(g.device, stream)
     counts = torch.empty(n_edges, dtype=torch.int32, device=g.device)

@@ -2,8 +2,8 @@
 forward and backward kernels behind one `torch.autograd.Function`.
 
 Replaces no TPU kernel: the reference's `repro.models.mamba2.ssd_chunked`
-is plain `jnp`, left to XLA's fusion. Added because its eager port
-(`models.mamba2.ssd_einsum`) set much of the pace of the mamba2-780m pod
+is plain `jnp`, left to XLA's fusion. Written by hand because the same
+algorithm as eager einsums set much of the pace of the mamba2-780m pod
 round on the H100: ~50 launches a layer's forward, [b, nc, H, Q, Q] fp32
 decay matrices and their products in device memory (100 MB each at 2048
 tokens, every layer, again in the backward), and several times these
@@ -30,15 +30,15 @@ reverse cumulative sum of dA inside each chunk. Saved for the backward:
 the inputs, y, A ([b, H, S]) and the states entering each chunk ([b, nc,
 H, P, N]); the rest is recomputed.
 
-A CPU tensor takes the plain versions below (`*_plain`, one per kernel,
+`ssd` is `models.mamba2.ssd_chunked` on every device, through one
+dispatch, the custom ops `repro_torch::ssd_fwd` / `ssd_bwd`
+(`_common.kernel_op`): a CUDA tensor launches the kernels or raises; a
+CPU tensor takes the plain versions below (`*_plain`, one per kernel,
 but dB's and dC's two kernels share one, and ⟨dS, S⟩, which the card's
 ssd_bwd_da computes, comes from the reverse state pass's; their forward
-and hand-derived backward are what the CPU tests hold against autograd
-and `jax.vjp`); a CUDA tensor
-launches the kernels or raises. The dispatch is the custom ops
-`repro_torch::ssd_fwd` / `ssd_bwd` (`_common.kernel_op`), whose fake
-versions allocate the outputs only. `ssd.launches` counts kernel launches
-on the card.
+and hand-derived backward are what the CPU tests hold against the
+sequential oracle and `jax.vjp`). The ops' fake versions allocate the
+outputs only. `ssd.launches` counts kernel launches on the card.
 """
 from __future__ import annotations
 
@@ -384,12 +384,14 @@ class _SSD(torch.autograd.Function):
 def ssd(xh: torch.Tensor, dtA: torch.Tensor, dtx_scale: torch.Tensor,
         Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
         initial_state: torch.Tensor | None = None):
-    """`models.mamba2.ssd_chunked`'s function (same arguments and
-    results: y [b, S, H, P], final state [b, H, P, N], both fp32) through
-    the kernels on a card and their plain versions on the CPU; its
-    gradients are the hand-derived backward's. Raises on shapes that
-    disagree, a sequence that is no multiple of the chunk, or on a card a
-    chunk over MAX_CHUNK."""
+    """The chunked SSD scan (`models.mamba2.ssd_chunked`): xh [b, S, H, P]
+    head inputs, dtA [b, S, H] log-decay per step (dt · A, negative),
+    dtx_scale [b, S, H] input scale (dt), Bm and Cm [b, S, N] shared
+    across heads; returns y [b, S, H, P] and the final state [b, H, P, N],
+    both fp32, through the kernels on a card and their plain versions on
+    the CPU; its gradients are the hand-derived backward's. Raises on
+    shapes that disagree, a sequence that is no multiple of the chunk, or
+    on a card a chunk over MAX_CHUNK."""
     b, S, H, P = xh.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)

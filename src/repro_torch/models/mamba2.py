@@ -7,16 +7,10 @@ chunk states (O(S·Q) compute, O(S/Q) sequential steps, state [H, P, N]
 carried in fp32). Decode is the O(1) per-token recurrence over the same
 state.
 
-On a CUDA tensor `ssd_chunked` runs the hand-written CUDA kernels of
-`kernels/csrc/ssd.cu` through `kernels/ssd.py` (forward and backward). They replace no TPU kernel: the
-reference's SSD is plain `jnp`. They were added because the einsum and
-segsum chain below (`ssd_einsum`) took ~50 launches a layer's forward,
-wrote [b, nc, H, Q, Q] decay matrices to device memory and took several
-times the kernels' device time for a mamba2-780m layer's forward and
-backward on an H100 (PERF.md §6). On this card they are bound by fp32 FMA
-throughput, not bytes; they skip the tiles above the causal diagonal and
-no Q x Q matrix per head leaves registers. A CPU tensor takes the einsum
-chain, as before.
+`ssd_chunked` is `kernels.ssd.ssd` on every device: one custom-op
+dispatch runs the hand-written CUDA kernels of `kernels/csrc/ssd.cu`
+(forward and backward) on a card and their plain versions on the CPU.
+`ssd_reference` is the O(S) oracle the tests hold it to.
 
 Block layout follows the reference Mamba2 module: in_proj → (z | xBC | dt),
 depthwise causal conv over xBC, SSD, gated RMSNorm, out_proj. n_groups=1.
@@ -29,7 +23,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd import ssd as ssd_kernel
+from repro_torch.kernels.ssd import ssd as ssd_chunked
 from repro_torch.models import nn
 
 F32 = torch.float32
@@ -69,81 +63,6 @@ def mamba2_init(gen: torch.Generator, s: SSMSpec, *, device=None) -> dict:
         "out_proj": nn.linear_init(gen, s.d_inner, s.d_model, use_bias=False,
                                    device=device),
     }
-
-
-# ------------------------------------------------------------------- SSD core
-def _segsum(a: torch.Tensor) -> torch.Tensor:
-    """a: [..., Q] -> lower-triangular cumulative sums
-    L[i,j] = sum_{j<m<=i} a_m, −inf above the diagonal."""
-    Q = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
-    d = cs[..., :, None] - cs[..., None, :]
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a.device))
-    return torch.where(mask, d, torch.full((), -math.inf, device=a.device))
-
-
-def ssd_chunked(xh: torch.Tensor, dtA: torch.Tensor, dtx_scale: torch.Tensor,
-                Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
-                initial_state: torch.Tensor | None = None):
-    """Chunked SSD scan.
-
-    xh:   [b, S, H, P]   head inputs
-    dtA:  [b, S, H]      log-decay per step (dt * A, negative)
-    dtx_scale: [b, S, H] input scale (dt)
-    Bm,Cm: [b, S, N]     shared across heads (n_groups=1)
-    Returns (y [b,S,H,P], final_state [b,H,P,N]).
-    A CUDA tensor goes through `kernels.ssd.ssd` (or raises there).
-    """
-    if xh.is_cuda:
-        return ssd_kernel(xh, dtA, dtx_scale, Bm, Cm, chunk=chunk,
-                          initial_state=initial_state)
-    return ssd_einsum(xh, dtA, dtx_scale, Bm, Cm, chunk=chunk,
-                      initial_state=initial_state)
-
-
-def ssd_einsum(xh, dtA, dtx_scale, Bm, Cm, *, chunk: int,
-               initial_state=None):
-    """`ssd_chunked` as einsums over the materialised decay matrices, on
-    any device: the CPU path (the reference's algorithm) and, on a card,
-    the yardstick the kernels are timed against."""
-    b, S, H, P = xh.shape
-    N = Bm.shape[-1]
-    chunk = min(chunk, S)
-    if S % chunk:
-        raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
-    nc = S // chunk
-
-    xc = (xh * dtx_scale[..., None]).to(F32).reshape(b, nc, chunk, H, P)
-    Ac = dtA.to(F32).reshape(b, nc, chunk, H)
-    Bc = Bm.to(F32).reshape(b, nc, chunk, N)
-    Cc = Cm.to(F32).reshape(b, nc, chunk, N)
-
-    A_cum = torch.cumsum(Ac, dim=2)                      # [b,nc,Q,H]
-    # within-chunk (diagonal) term
-    L = torch.exp(_segsum(Ac.movedim(-1, -2)))           # [b,nc,H,Q,Q]
-    G = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)          # [b,nc,Q,Q]
-    y_diag = torch.einsum("bcqs,bchqs,bcshp->bcqhp", G, L, xc)
-
-    # end-of-chunk states
-    decay_states = torch.exp(A_cum[:, :, -1:, :] - A_cum)  # [b,nc,Q,H]
-    states = torch.einsum("bcsn,bcsh,bcshp->bchpn", Bc, decay_states, xc)
-    chunk_decay = torch.exp(A_cum[:, :, -1, :])          # [b,nc,H]
-
-    # across-chunk recurrence (sequential over chunks)
-    carry = (torch.zeros((b, H, P, N), dtype=F32, device=xh.device)
-             if initial_state is None else initial_state.to(F32))
-    prev = []
-    for c in range(nc):
-        prev.append(carry)
-        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
-    prev_states = torch.stack(prev, dim=1)               # [b,nc,H,P,N]
-
-    # cross-chunk (off-diagonal) contribution
-    state_decay_out = torch.exp(A_cum)                   # [b,nc,Q,H]
-    y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc, prev_states,
-                         state_decay_out)
-    y = (y_diag + y_off).reshape(b, S, H, P)
-    return y, carry
 
 
 # ------------------------------------------------------------------ block apply
@@ -236,16 +155,18 @@ def mamba2_decode(p, s: SSMSpec, x: torch.Tensor, state: torch.Tensor,
 
 # ---------------------------------------------------------------------- oracle
 def ssd_reference(xh, dtA, dtx_scale, Bm, Cm, initial_state=None):
-    """O(S) sequential recurrence oracle for tests (exact SSD semantics)."""
+    """O(S) sequential recurrence oracle for tests (exact SSD semantics),
+    in fp32, or in float64 when xh is float64."""
     b, S, H, P = xh.shape
     N = Bm.shape[-1]
-    st = torch.zeros((b, H, P, N), dtype=F32, device=xh.device) \
-        if initial_state is None else initial_state.to(F32)
+    ft = torch.promote_types(xh.dtype, F32)
+    st = torch.zeros((b, H, P, N), dtype=ft, device=xh.device) \
+        if initial_state is None else initial_state.to(ft)
     ys = []
     for t in range(S):
-        a = torch.exp(dtA[:, t, :]).to(F32)                      # [b,H]
-        xt = (xh[:, t] * dtx_scale[:, t, :, None]).to(F32)
+        a = torch.exp(dtA[:, t, :]).to(ft)                       # [b,H]
+        xt = (xh[:, t] * dtx_scale[:, t, :, None]).to(ft)
         st = st * a[..., None, None] + torch.einsum("bhp,bn->bhpn", xt,
-                                                    Bm[:, t].to(F32))
-        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t].to(F32), st))
+                                                    Bm[:, t].to(ft))
+        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t].to(ft), st))
     return torch.stack(ys, dim=1), st                            # [b,S,H,P]

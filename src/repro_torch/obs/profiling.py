@@ -64,8 +64,7 @@ in it synchronises.
 `device_profile()` and `device_breakdown(prof, wall_s)` are the launch
 profilers' shared capture and summary: device-busy seconds, the idle
 share of a wall time, and the top device entries. `time_ms(fn)` is the
-per-launch device time of one kernel call (`chip_smoke.py`,
-`launch/profile_kernels.py`).
+per-launch device time of one kernel call (`chip_smoke.py`).
 """
 from __future__ import annotations
 

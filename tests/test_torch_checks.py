@@ -1,13 +1,8 @@
-"""The kernel checks and measurement plumbing shared by `chip_smoke.py` and
-`launch/profile_kernels.py`: `repro_torch.kernels.checks` against the JAX
-package's threshold solve and Pallas histogram (interpret mode), and that
-each check fails on a kernel that is wrong; `_build`'s build variants; and
-the loader that puts another tree's kernel wrappers beside this tree's.
-No card is needed."""
+"""The kernel checks of `chip_smoke.py`: `repro_torch.kernels.checks`
+against the JAX package's threshold solve and Pallas histogram (interpret
+mode), and that each check fails when the package's wrapper is wrong; and
+`_build`'s library names. No card is needed."""
 from __future__ import annotations
-
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,12 +15,12 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.magnitude_hist import magnitude_hist as j_hist  # noqa: E402
 
 from repro_torch.kernels import _build, checks, ref  # noqa: E402
+from repro_torch.kernels import compact_topk as ct_mod  # noqa: E402
+from repro_torch.kernels import ef_topk as ef_mod  # noqa: E402
+from repro_torch.kernels import magnitude_hist as mh_mod  # noqa: E402
 from repro_torch.kernels.compact_topk import compact_blocks  # noqa: E402
 from repro_torch.kernels.ef_topk import ef_topk  # noqa: E402
 from repro_torch.kernels.magnitude_hist import magnitude_hist  # noqa: E402
-from repro_torch.launch import profile_kernels  # noqa: E402
-
-SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 def _ulps(a: float, b: float) -> int:
@@ -121,7 +116,7 @@ class TestCheckHist:
         assert _ulps(float(t), tj) <= 1
 
     @pytest.mark.parametrize("broken", [0, 1])
-    def test_fails_on_a_wrong_pass(self, broken):
+    def test_fails_on_a_wrong_pass(self, broken, monkeypatch):
         """A histogram off by one in either pass is caught."""
         seen = []
 
@@ -129,18 +124,10 @@ class TestCheckHist:
             c = ref.ref_magnitude_hist(g, e)
             seen.append(1)
             return c + 1 if len(seen) - 1 == broken else c
+        monkeypatch.setattr(mh_mod, "magnitude_hist", hist)
         with pytest.raises(checks.CheckFailed,
                            match=("coarse", "fine")[broken]):
-            checks.check_hist(checks.vec(1000, 1, "cpu"), "x", hist=hist)
-
-    def test_takes_the_given_kernel(self):
-        calls = []
-
-        def hist(g, e):
-            calls.append(e.numel())
-            return magnitude_hist(g, e)
-        checks.check_hist(checks.vec(500, 2, "cpu"), "x", 7, hist=hist)
-        assert calls == [49, 129]
+            checks.check_hist(checks.vec(1000, 1, "cpu"), "x")
 
 
 class TestCheckCompact:
@@ -150,26 +137,28 @@ class TestCheckCompact:
         assert checks.check_compact(acc, t, 8, "cpu") == 0.0
 
     @pytest.mark.parametrize("which", [0, 1, 2, 3])
-    def test_fails_on_a_wrong_output(self, which):
+    def test_fails_on_a_wrong_output(self, which, monkeypatch):
         def compact(acc, t, *, budget):
             outs = list(compact_blocks(acc, t, budget=budget))
             outs[which] = outs[which].clone()
             outs[which].view(-1)[0] += 1
             return tuple(outs)
+        monkeypatch.setattr(ct_mod, "compact_blocks", compact)
         acc = checks.vec(2 * 64, 6, "cpu").view(2, 64)
         with pytest.raises(checks.CheckFailed,
                            match=("vals", "idx", "cnt", "res")[which]):
-            checks.check_compact(acc, 0.0, 4, "x", compact=compact)
+            checks.check_compact(acc, 0.0, 4, "x")
 
-    def test_fails_on_the_sign_of_zero(self):
+    def test_fails_on_the_sign_of_zero(self, monkeypatch):
         """Bitwise, not by value: a residual of -0.0 where the plain
         version has +0.0 is a difference."""
         def compact(acc, t, *, budget):
             vals, idx, cnt, res = compact_blocks(acc, t, budget=budget)
             return vals, idx, cnt, torch.where(res == 0, -0.0, res)
+        monkeypatch.setattr(ct_mod, "compact_blocks", compact)
         acc = checks.vec(2 * 64, 7, "cpu").view(2, 64)
         with pytest.raises(checks.CheckFailed, match="res"):
-            checks.check_compact(acc, 0.0, 4, "x", compact=compact)
+            checks.check_compact(acc, 0.0, 4, "x")
 
 
 class TestCheckEf:
@@ -183,28 +172,30 @@ class TestCheckEf:
             assert checks.check_ef(g, r, t, "cpu") == 0.0
 
     @pytest.mark.parametrize("which", [0, 1, 2])
-    def test_fails_on_a_wrong_output(self, which):
+    def test_fails_on_a_wrong_output(self, which, monkeypatch):
         def ef(g, r, t):
             outs = list(ef_topk(g, r, t))
             outs[which] = outs[which].clone()
             outs[which].view(-1)[0] += 1
             return tuple(outs)
+        monkeypatch.setattr(ef_mod, "ef_topk", ef)
         g = checks.vec(500, 3, "cpu")
         with pytest.raises(checks.CheckFailed,
                            match=("out", "residual", "nnz")[which]):
-            checks.check_ef(g, g * 0.1, 0.5, "x", ef=ef)
+            checks.check_ef(g, g * 0.1, 0.5, "x")
 
-    def test_fails_on_the_sign_of_zero(self):
+    def test_fails_on_the_sign_of_zero(self, monkeypatch):
         """Bitwise, not by value: a residual of -0.0 where the plain
         version has +0.0 is a difference."""
         def ef(g, r, t):
             out, res, nnz = ef_topk(g, r, t)
             return out, torch.where(res == 0, -0.0, res), nnz
+        monkeypatch.setattr(ef_mod, "ef_topk", ef)
         g = checks.vec(500, 4, "cpu")
         with pytest.raises(checks.CheckFailed, match="residual"):
-            checks.check_ef(g, torch.zeros(500), 0.0, "x", ef=ef)
+            checks.check_ef(g, torch.zeros(500), 0.0, "x")
 
-    def test_fails_on_a_nan_payload(self):
+    def test_fails_on_a_nan_payload(self, monkeypatch):
         """NaN is compared by its bits: another NaN pattern in r' is a
         difference."""
         def ef(g, r, t):
@@ -216,77 +207,81 @@ class TestCheckEf:
         g[9] = float("nan")
         want = ref.ref_ef_topk(g, torch.zeros(500), torch.tensor(0.5))[1]
         assert want.view(torch.int32)[9] != 0x7FFFFFFF
+        monkeypatch.setattr(ef_mod, "ef_topk", ef)
         with pytest.raises(checks.CheckFailed, match="residual"):
-            checks.check_ef(g, torch.zeros(500), 0.5, "x", ef=ef)
+            checks.check_ef(g, torch.zeros(500), 0.5, "x")
 
-    def test_fails_on_a_wrong_dtype(self):
+    def test_fails_on_a_wrong_dtype(self, monkeypatch):
         def ef(g, r, t):
             out, res, nnz = ef_topk(g, r, t)
             return out, res, nnz.to(torch.int64)
+        monkeypatch.setattr(ef_mod, "ef_topk", ef)
         g = checks.vec(100, 6, "cpu")
         with pytest.raises(checks.CheckFailed, match="nnz"):
-            checks.check_ef(g, g, 0.5, "x", ef=ef)
-
-    def test_takes_the_given_kernel(self):
-        calls = []
-
-        def ef(g, r, t):
-            calls.append(g.numel())
-            return ef_topk(g, r, t)
-        g = checks.vec(77, 7, "cpu")
-        checks.check_ef(g, g, 0.5, "x", ef=ef)
-        assert calls == [77]
+            checks.check_ef(g, g, 0.5, "x")
 
 
-class TestBuildVariants:
-    def test_defines_become_nvcc_flags(self):
-        assert _build._flags() == _build.NVCC_FLAGS
-        assert _build._flags(("LOADS=4", "HIST_MATCH_ANY"))[-2:] == (
-            "-DLOADS=4", "-DHIST_MATCH_ANY")
-
-    @pytest.mark.parametrize("name", _build.CUDA_SOURCES)
-    def test_each_variant_has_its_own_library(self, name):
-        src, plain = _build._target(name)
-        _, var = _build._target(name, ("LOADS=4",))
-        assert src.is_file() and plain != var
-        assert plain.parent == var.parent == _build.BUILD_DIR
-        assert _build._target(name, ("LOADS=4",))[1] == var
-
-    def test_variants_named_by_the_profiler_exist_in_the_source(self):
-        assert set(profile_kernels.VARIANTS) <= set(_build.CUDA_SOURCES)
-        for name, variants in profile_kernels.VARIANTS.items():
-            text = (_build.CSRC / f"{name}.cu").read_text()
-            for defines in variants.values():
-                for d in defines:
-                    assert f"#ifdef {d.split('=')[0]}" in text \
-                        or f"#ifndef {d.split('=')[0]}" in text
+def _hist_wrong(g, e):
+    return magnitude_hist(g, e) + 1
 
 
-class TestTreeKernels:
-    def test_this_tree(self):
-        hist, compact, ef = profile_kernels.tree_kernels(None)
-        assert hist is magnitude_hist and compact is compact_blocks
-        assert ef is ef_topk
+def _compact_wrong(acc, t, *, budget):
+    vals, idx, cnt, res = compact_blocks(acc, t, budget=budget)
+    return vals, idx, cnt + 1, res
 
-    def test_another_tree_beside_this_one(self):
-        """Another checkout's wrappers load as separate modules, and this
-        tree's modules are the ones `sys.modules` holds afterwards."""
-        before = {k: v for k, v in sys.modules.items()
-                  if k.split(".")[0] == "repro_torch"}
-        hist, compact, ef = profile_kernels.tree_kernels(str(SRC))
-        assert hist is not magnitude_hist and compact is not compact_blocks
-        assert ef is not ef_topk
-        for theirs, ours in ((hist, magnitude_hist), (ef, ef_topk)):
-            assert Path(theirs.__globals__["__file__"]).resolve() == Path(
-                sys.modules[ours.__module__].__file__).resolve()
-        after = {k: v for k, v in sys.modules.items()
-                 if k.split(".")[0] == "repro_torch"}
-        assert after == before
-        g = checks.vec(300, 8, "cpu")
-        e = torch.tensor([2.0, 1.0, 0.5])
-        assert torch.equal(hist(g, e), magnitude_hist(g, e))
-        acc = g.view(3, 100)
-        for a, b in zip(compact(acc, 0.5, budget=5),
-                        compact_blocks(acc, 0.5, budget=5)):
-            assert checks.bits_equal(a.float(), b.float())
-        assert checks.check_ef(g, g * 0.5, 0.5, "other tree", ef=ef) == 0.0
+
+def _ef_wrong(g, r, t):
+    out, res, nnz = ef_topk(g, r, t)
+    return out, res, nnz + 1
+
+
+# (module, wrapper, a wrong wrapper, the check's call)
+WRONG = {
+    "hist": (mh_mod, "magnitude_hist", _hist_wrong,
+             lambda: checks.check_hist(checks.vec(500, 2, "cpu"), "x")),
+    "compact": (ct_mod, "compact_blocks", _compact_wrong,
+                lambda: checks.check_compact(
+                    checks.vec(4 * 64, 3, "cpu").view(4, 64), 0.5, 4, "x")),
+    "ef": (ef_mod, "ef_topk", _ef_wrong,
+           lambda: checks.check_ef(checks.vec(77, 7, "cpu"),
+                                   checks.vec(77, 8, "cpu"), 0.5, "x")),
+}
+
+
+@pytest.mark.parametrize("which", list(WRONG))
+def test_checks_call_the_package_wrapper(which, monkeypatch):
+    """Each check calls the package's wrapper, not the plain version on
+    both sides: the check passes with the wrapper as it is and raises
+    once the wrapper is replaced by a wrong one."""
+    mod, name, wrong, check = WRONG[which]
+    check()
+    calls = []
+
+    def spy(*a, **k):
+        calls.append(1)
+        return wrong(*a, **k)
+    monkeypatch.setattr(mod, name, spy)
+    with pytest.raises(checks.CheckFailed):
+        check()
+    assert calls
+
+
+@pytest.mark.parametrize("name", _build.CUDA_SOURCES)
+def test_library_named_by_a_hash_of_source_and_flags(name, tmp_path,
+                                                     monkeypatch):
+    """One library per source, in BUILD_DIR, named by a hash of the source
+    and the flags: the same across calls, another once one byte of the
+    source changes."""
+    src, so = _build._target(name)
+    assert src == _build.CSRC / f"{name}.cu" and src.is_file()
+    assert so.parent == _build.BUILD_DIR and so.name.startswith(f"lib{name}_")
+    assert _build._target(name) == (src, so)
+    copy = tmp_path / src.name
+    copy.write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build._target(name) == (copy, so)
+    text = bytearray(copy.read_bytes())
+    text[-1] ^= 1
+    copy.write_bytes(bytes(text))
+    other = _build._target(name)[1]
+    assert other != so and other.parent == _build.BUILD_DIR

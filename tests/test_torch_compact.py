@@ -2,8 +2,7 @@
 built on it against the JAX package: `compact_blocks(..., interpret=True)`
 bit for bit on the reference's sweep (tests/test_kernels.py), the scatter
 rebuild property, `compact_shard_topk` and `topk_compress_sparse`; and
-`kernels._common.kernel_op`, which registers each wrapper's op, keeping a
-second copy of the wrappers off the first copy's op name."""
+`kernels._common.kernel_op`, which registers each wrapper's op once."""
 import types
 
 import numpy as np
@@ -243,10 +242,9 @@ class TestKernelPaths:
         assert ct_mod.compact_blocks.launches == before + (0 if err else 1)
 
 
-def test_kernel_op_skips_a_taken_name():
-    """A second registration of a kernel's op (another tree's copy of the
-    wrappers) takes a suffixed name and leaves the first op's
-    implementation in place."""
+def test_kernel_op_raises_on_a_taken_name():
+    """A second registration under a kernel's op name raises and leaves the
+    first op's implementation in place."""
     from repro_torch.kernels._common import kernel_op
 
     def one(x: torch.Tensor) -> torch.Tensor:
@@ -256,6 +254,8 @@ def test_kernel_op_skips_a_taken_name():
         return x + 2
 
     a = kernel_op("kernel_op_twice", one, torch.empty_like)
-    b = kernel_op("kernel_op_twice", two, torch.empty_like)
+    with pytest.raises(RuntimeError, match="kernel_op_twice"):
+        kernel_op("kernel_op_twice", two, torch.empty_like)
     x = torch.zeros(3)
-    assert torch.equal(a(x), x + 1) and torch.equal(b(x), x + 2)
+    assert torch.equal(a(x), x + 1)
+    assert torch.equal(torch.ops.repro_torch.kernel_op_twice(x), x + 1)

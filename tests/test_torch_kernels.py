@@ -333,7 +333,7 @@ class TestMagnitudeHistPaths:
         calls = []
         monkeypatch.setattr(mh_mod, "_WORKSPACES",
                             StreamWorkspaces(mh_mod.MAX_EDGES + 1))
-        monkeypatch.setattr(mh_mod, "_lib", lambda defines=(): _fake_lib(
+        monkeypatch.setattr(mh_mod, "_lib", lambda: _fake_lib(
             "repro_magnitude_hist", err, calls))
         g = torch.ones(1000)[1:]
         edges = torch.tensor([2.0, 0.5])
@@ -355,22 +355,6 @@ class TestMagnitudeHistPaths:
         # its SM count) and the stream
         assert args[6] == 2 and args[9:] == (0, 9)
 
-    def test_launch_from_a_given_library(self, monkeypatch):
-        """`lib=` launches from that library (a build variant), with the
-        same arguments and the same workspace as the default one."""
-        calls, other = [], []
-        monkeypatch.setattr(mh_mod, "_WORKSPACES",
-                            StreamWorkspaces(mh_mod.MAX_EDGES + 1))
-        monkeypatch.setattr(mh_mod, "_lib", lambda defines=(): _fake_lib(
-            "repro_magnitude_hist", 0, other))
-        g, edges = torch.ones(64), torch.tensor([0.5])
-        mh_mod._launch(g, edges, _Stream(3),
-                       lib=_fake_lib("repro_magnitude_hist", 0, calls))
-        mh_mod._launch(g, edges, _Stream(3))
-        assert len(calls) == len(other) == 1
-        # all but the counts buffer, which each call allocates
-        assert calls[0][1:8] + calls[0][9:] == other[0][1:8] + other[0][9:]
-        assert mh_mod._WORKSPACES.keys() == [(None, 3)]
 
 
 def _torch_of(x, dtype: str) -> torch.Tensor:
@@ -495,7 +479,7 @@ class TestEfTopkPaths:
         workspace and raises."""
         calls = []
         monkeypatch.setattr(ef_mod, "_WORKSPACES", StreamWorkspaces(2))
-        monkeypatch.setattr(ef_mod, "_lib", lambda defines=(): _fake_lib(
+        monkeypatch.setattr(ef_mod, "_lib", lambda: _fake_lib(
             "repro_ef_topk", err, calls))
         g = torch.ones(1000, dtype=torch.bfloat16)[1:]
         r = torch.zeros(1000)[1:]
@@ -528,7 +512,7 @@ class TestEfTopkPaths:
         """Fresh g and r share the outputs' phase: a quad body."""
         calls = []
         monkeypatch.setattr(ef_mod, "_WORKSPACES", StreamWorkspaces(2))
-        monkeypatch.setattr(ef_mod, "_lib", lambda defines=(): _fake_lib(
+        monkeypatch.setattr(ef_mod, "_lib", lambda: _fake_lib(
             "repro_ef_topk", 0, calls))
         g, r = torch.ones(4099), torch.ones(4099, dtype=torch.bfloat16)
         ef_mod._launch(g, r, torch.tensor(1.0), _Stream(1))
@@ -537,22 +521,6 @@ class TestEfTopkPaths:
             [g.data_ptr(), r.data_ptr(), args[5], args[6]], [4, 2, 4, 2],
             4099)
         assert args[8:11] == (4099, head, nquad) and nquad > 1000
-
-    def test_launch_from_a_given_library(self, monkeypatch):
-        """`lib=` launches from that library (a build variant), with the
-        same arguments but the fresh outputs and the same workspace as the
-        default one."""
-        calls, other = [], []
-        monkeypatch.setattr(ef_mod, "_WORKSPACES", StreamWorkspaces(2))
-        monkeypatch.setattr(ef_mod, "_lib", lambda defines=(): _fake_lib(
-            "repro_ef_topk", 0, other))
-        g, r, t = torch.ones(64), torch.ones(64), torch.tensor(0.5)
-        ef_mod._launch(g, r, t, _Stream(3),
-                       lib=_fake_lib("repro_ef_topk", 0, calls))
-        ef_mod._launch(g, r, t, _Stream(3))
-        assert len(calls) == len(other) == 1
-        assert calls[0][:5] + calls[0][8:] == other[0][:5] + other[0][8:]
-        assert ef_mod._WORKSPACES.keys() == [(None, 3)]
 
     def test_too_long_raises(self, monkeypatch):
         """nnz is int32: the wrapper refuses 2^31 elements or more (here

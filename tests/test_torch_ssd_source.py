@@ -191,8 +191,8 @@ def test_source_matches_plain_versions(lib, case):
 
 def test_source_gradients_match_float64_autograd(lib):
     """The same source's gradients against float64 autograd through the
-    port's einsum chain: the hand-derived backward, not only its plain
-    version, is the function's."""
+    port's sequential oracle: the hand-derived backward, not only its
+    plain version, is the function's."""
     b, S, H, P, N, Q = 1, 96, 3, 16, 8, 32
     g = torch.Generator().manual_seed(1)
     rn = lambda *s: torch.randn(s, generator=g)
@@ -204,7 +204,7 @@ def test_source_gradients_match_float64_autograd(lib):
     grads = K._bwd_cuda(ins[0], ins[2], ins[3], ins[4], A_cum, prev, fin, y,
                         dy, dfin, Q, 0, 132, lib=lib)
     leaves = [t.double().requires_grad_(True) for t in ins]
-    ey, efin = M.ssd_einsum(*leaves[:5], chunk=Q, initial_state=leaves[5])
+    ey, efin = M.ssd_reference(*leaves[:5], initial_state=leaves[5])
     torch.autograd.backward([ey, efin], [dy.double(), dfin.double()])
     assert _rel(y, ey) < 1e-5 and _rel(fin, efin) < 1e-5
     for what, got, leaf in zip(("dx", "d(dtA)", "d(dt)", "dB", "dC",
