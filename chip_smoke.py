@@ -122,7 +122,7 @@ Phases (any failure exits non-zero and prints no result line):
 13. datacenter  `launch.train.run_datacenter` on the unreduced mamba2-780m
             (2 pods, k 2, δ 0.01, 3 steps, batch 8): finite loss, comm_mb
             equal to the top-k payload formula, fused_momentum launches ==
-            4 (the α probe) + 3 x 2 x 2 steps, SSD launches == 15 x 48
+            4 (the α probe) + 3 x 2 x 2 steps, SSD launches == 14 x 48
             layers x those 16 steps; the wall per round split into local
             rounds, compression and aggregation, and the peak memory; at
             full width on the card and on the CPU, the gradients of the
@@ -164,11 +164,12 @@ Phases (any failure exits non-zero and prints no result line):
             state where given) within relative L2 1e-4, at mamba2-780m's
             (1 x 2048, H 48, P 64, N 128, chunk 256) and granite's (S
             4096, H 64) widths, hymba's N 16, the smoke configs' P 32 and
-            a ragged S 100 < chunk; one forward and backward is 15 kernels
+            a ragged S 100 < chunk; one forward and backward is 14 kernels
             named ssd_* under torch.profiler; one mamba2-780m layer's
-            `mamba2_train` forward and backward launches them 15 times;
+            `mamba2_train` forward and backward launches them 14 times;
             forward + backward timed at both main-path widths beside the
-            bound and the plain version.
+            bound and the plain version, and each ssd_* kernel's device
+            ms beside its FMAs and its share of the fp32 bound.
 Each of phases 11-17 prints its seconds beside the card's name and power
 limit.
 
@@ -191,6 +192,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -630,17 +632,32 @@ def ssd_inputs(torch, b, S, H, P, N, init, dev, seed=0):
     return ins, rn(b, S, H, P), rn(b, H, P, N)
 
 
+def ssd_kernel_fma(b, S, H, P, N, Q) -> dict[str, int]:
+    """The multiply-adds of the SSD's forward and backward per kernel (the
+    name a profiler key holds), counting the causal products' pairs (half
+    of each Q x Q block): G (ssd_bmm, in each direction), the chunk states
+    and dS from y_off (ssd_chunk_state, twice), y's and du's state and
+    causal parts, dG, and dB's and dC's state parts and dG's products (one
+    ssd_bwd_dbc launch)."""
+    tri = S * (Q + 1) // 2                  # causal pairs over all chunks
+    hspn, htp = H * S * P * N, H * tri * P
+    return {k: b * v for k, v in (
+        ("ssd_bmm", 2 * tri * N), ("ssd_chunk_state_kernel<true>", hspn),
+        ("ssd_chunk_state_kernel<false>", hspn),
+        ("ssd_chunk_scan_kernel", hspn + htp),
+        ("ssd_chunk_scan_bwd_dx", hspn + htp), ("ssd_bwd_dcb", htp),
+        ("ssd_bwd_dbc_kernel", 2 * hspn + 2 * tri * N))}
+
+
 def ssd_work(b, S, H, P, N, Q) -> tuple[float, float]:
     """(bytes, FLOPs) of the SSD's forward and backward: x, dtA, dt, B, C
     and dy read once, y, the final state and the five gradients written
-    once; the multiply-adds of G and y's causal product (half of each Q x
-    Q block), the chunk states and y_off, then dS, du's two parts, dG,
-    dC's and dB's state parts and dG's two products."""
-    tri = S * (Q + 1) // 2                  # causal pairs over all chunks
-    fma = (tri * N + 2 * H * S * P * N + H * tri * P          # forward
-           + 4 * H * S * P * N + 2 * H * tri * P + 2 * tri * N)
+    once; `ssd_kernel_fma`'s multiply-adds but G's once (the backward
+    recomputes it)."""
+    fma = sum(ssd_kernel_fma(b, S, H, P, N, Q).values()) \
+        - b * S * (Q + 1) // 2 * N
     io = 4 * b * (4 * S * H * P + 4 * S * H + 4 * S * N + H * P * N)
-    return io, 2.0 * fma * b
+    return io, 2.0 * fma
 
 
 def phase_ssd(torch, dev: str = "cuda") -> dict:
@@ -705,9 +722,9 @@ def phase_ssd(torch, dev: str = "cuda") -> dict:
     names = [e.key for e in prof.key_averages() if e.device_type
              == torch.autograd.DeviceType.CUDA and "ssd_" in e.key]
     n_rows = sum(e.count for e in prof.key_averages() if e.key in names)
-    if n_rows != 15:
+    if n_rows != 14:
         fail(f"[ssd] a forward and backward ran {n_rows} ssd_ kernels "
-             f"({names}), not 15")
+             f"({names}), not 14")
     log(f"[ssd] one forward + backward: {n_rows} kernels named ssd_*: "
         f"{sorted(names)}")
     # the main path: one mamba2-780m layer's mamba2_train, forward and
@@ -721,9 +738,9 @@ def phase_ssd(torch, dev: str = "cuda") -> dict:
     M.mamba2_train(p, s, x, dtype=torch.float32).square().mean().backward()
     torch.cuda.synchronize()
     launches = K.ssd.launches
-    if launches != 15:
+    if launches != 14:
         fail(f"[ssd] mamba2_train launched {K.ssd.launches} SSD kernels, "
-             f"not 5 forward + 10 backward")
+             f"not 5 forward + 9 backward")
     log(f"[ssd] mamba2_train (mamba2-780m layer, 1 x 2048) forward and "
         f"backward: {K.ssd.launches} SSD kernel launches")
     rows = {}
@@ -750,8 +767,17 @@ def phase_ssd(torch, dev: str = "cuda") -> dict:
             for _ in range(5):
                 fwd_bwd_at()
             torch.cuda.synchronize()
-        device_ms = sum(e.device_time_total for e in prof.key_averages()
-                        if "ssd_" in e.key) / 5e3
+        per = {e.key: e.device_time_total / 5e3
+               for e in prof.key_averages() if "ssd_" in e.key}
+        device_ms = sum(per.values())
+        fma = ssd_kernel_fma(b, S, H, P, N, Q)
+        for key, ms in sorted(per.items(), key=lambda kv: -kv[1]):
+            f = sum(v for k, v in fma.items() if k in key)
+            kernel = re.search(r"ssd_\w+(<\w+>)?", key)[0]
+            share = 2 * f / H100_F32_OPS_PER_S / ms * 1e5
+            log(f"[ssd] {name} {kernel}: {ms:.5f} ms, "
+                + (f"{f / 1e9:.3f} G FMA, {share:.1f}% of the fp32 bound"
+                   if f else "no products"))
         row = dict(ms=time_ms(fwd_bwd_at), plain_ms=plain_ms,
                    library_ms=None, fwd_ms=fwd_ms, device_ms=device_ms,
                    bound=bound(*ssd_work(b, S, H, P, N, Q)))
@@ -1664,7 +1690,7 @@ def phase_datacenter(torch, dev: str = "cuda",
     round(0.01·d) coordinates (values and int32 indices, 64 bits each,
     rounded to fp32 as the reference does, plus the 32-bit count header);
     fused_momentum launches == the α probe's 4 steps + steps x pods x k,
-    and SSD kernel launches == 15 (5 forward, 10 backward) x the Mamba-2
+    and SSD kernel launches == 14 (5 forward, 9 backward) x the Mamba-2
     layers x those steps (remat is off, so no forward runs twice).
     Prints the wall per round split into local rounds, compression and
     aggregation, and the peak memory. Then `_dc_full_width_witness`, and
@@ -1709,10 +1735,10 @@ def phase_datacenter(torch, dev: str = "cuda",
     if dev == "cuda" and c["fused_momentum"] != want_fm:
         fail(f"datacenter: fused_momentum launched {c['fused_momentum']} "
              f"times, expected {want_fm}")
-    want_ssd = 15 * n_ssd * want_fm
+    want_ssd = 14 * n_ssd * want_fm
     if dev == "cuda" and c["ssd"] != want_ssd:
         fail(f"datacenter: SSD kernels launched {c['ssd']} times, expected "
-             f"15 x {n_ssd} Mamba-2 layers x {want_fm} steps = {want_ssd}")
+             f"14 x {n_ssd} Mamba-2 layers x {want_fm} steps = {want_ssd}")
     fm, n_ssd_launches = c["fused_momentum"], c["ssd"]
     _reset_peak(torch, dev)
     _dc_full_width_witness(torch, dev, cfg, k, res["loss"],

@@ -10,12 +10,14 @@ tokens, every layer, again in the backward), and several times these
 kernels' device time for a layer's forward and backward (PERF.md §6).
 
 Route: CUDA C++ (`csrc/ssd.cu`, built for sm_90a by `_build`, bound with
-ctypes): 5 launches forward and 10 backward, two C calls. The source's
+ctypes): 5 launches forward and 9 backward, two C calls. The source's
 head has the algebra, the bound (fp32 FMA throughput, not bytes: every
 product is plain fp32 `fmaf`, as the configurations run fp32 with TF32
-off) and what the design does about it (64 x 64 register tiles, decays
-made as operands are staged, the causal tile skip, no Q x Q matrix per
-head in device memory, head splits for long inner dimensions).
+off) and what the design does about it (one product engine: 8 x 8
+outputs a thread, operands copied asynchronously into a ring of
+shared-memory slabs, decays and scales applied to the landed slabs; the
+causal tile skip, no Q x Q matrix per head in device memory, head splits
+for long inner dimensions).
 
 Notation, per chunk of Q steps and head h: u_s = dt_s·x_s, A_q the
 cumulative sum of dtA inside the chunk, G_qs = C_q·B_s, S_c the state
@@ -213,13 +215,18 @@ def ssd_bwd_plain(x, dt, B, C, A, prev, final, y, dy, dfinal, Q: int):
 
 
 # -------------------------------------------------------------------- kernels
-# csrc/ssd.cu's settings: the side of a block's output tile (T), the state
-# elements of a state pass's block (NE), the longest chunk (QMAX), the most
-# heads of a split (MAXH) and the int32s of `Dims`
-TILE, STATE_BLOCK, MAX_CHUNK, MAX_SPLIT_HEADS, N_DIMS = 64, 256, 256, 16, 33
+# csrc/ssd.cu's settings: the output tiles of its head-summed products
+# (dG's 128 q by 64 s, dB's and dC's 128 rows by 64 columns), du's p tiles
+# (64 wide), the state elements of a state pass's block (NE), the longest
+# chunk (QMAX), the most heads of a split (MAXH, MAXH_DCB for dG) and the
+# int32s of `Dims`
+DCB_ROWS, DCB_COLS, DBC_ROWS, DBC_COLS, DX_COLS = 128, 64, 128, 64, 64
+STATE_BLOCK, MAX_CHUNK, N_DIMS = 256, 256, 26
+MAX_SPLIT_HEADS, MAX_SPLIT_HEADS_DCB = 16, 8
 # blocks per SM that the head splits of ssd_bwd_dcb and ssd_bwd_dbc aim
-# at (one wave of either at mamba2-780m's and granite's shapes)
-SPLIT_BLOCKS_PER_SM = 4
+# at (their launch bounds' residency)
+DCB_BLOCKS_PER_SM, DBC_BLOCKS_PER_SM = 3, 4
+FWD_LAUNCHES, BWD_LAUNCHES = 5, 9
 
 
 @functools.lru_cache(maxsize=None)
@@ -230,7 +237,7 @@ def _lib() -> ctypes.CDLL:
     _build.build()
     lib = _build.load_library("ssd")
     dims = ctypes.POINTER(ctypes.c_int)
-    for fn, n_ptrs in ((lib.repro_ssd_fwd, 12), (lib.repro_ssd_bwd, 21)):
+    for fn, n_ptrs in ((lib.repro_ssd_fwd, 12), (lib.repro_ssd_bwd, 23)):
         fn.restype = ctypes.c_int
         fn.argtypes = [dims] + [ctypes.c_void_p] * n_ptrs
     return lib
@@ -240,12 +247,33 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _split(target: int, work: int, H: int) -> tuple[int, int]:
+def _split(target: int, work: int, H: int,
+           cap: int = MAX_SPLIT_HEADS) -> tuple[int, int]:
     """(splits, heads per split) of H heads, so that `work` blocks per
-    split make about `target` blocks, at most MAX_SPLIT_HEADS heads each."""
-    want = min(H, max(1, _cdiv(target, work)))
-    per = min(_cdiv(H, want), MAX_SPLIT_HEADS)
+    split make at most `target` blocks where they can (one wave, no tail),
+    at most `cap` heads each."""
+    want = min(H, max(1, target // work))
+    per = min(_cdiv(H, want), cap)
     return _cdiv(H, per), per
+
+
+def _dcb_tiles(Q: int) -> int:
+    """dG's (q, s) tiles per chunk that hold some s ≤ q."""
+    return sum(_cdiv(min(Q, q0 + DCB_ROWS), DCB_COLS)
+               for q0 in range(0, Q, DCB_ROWS))
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """t [b, S, H, P] running along p, then h (the kernels' layout), or
+    a contiguous copy."""
+    P = t.shape[-1]
+    ok = t.stride(-1) == 1 and (t.shape[-2] == 1 or t.stride(-2) == P)
+    return t if ok else t.contiguous()
+
+
+def _along(t: torch.Tensor) -> torch.Tensor:
+    """t [b, S, N] running along n, or a contiguous copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
 
 
 def _dims(x, dy, dt, dtA, B, C, Q: int, splits=(0, 0, 0, 0)):
@@ -255,12 +283,13 @@ def _dims(x, dy, dt, dtA, B, C, Q: int, splits=(0, 0, 0, 0)):
     or a stride reaches 2**31."""
     b, S, H, P = x.shape
     N = B.shape[-1]
-    vals = (b, S, H, P, N, Q, S // Q, _cdiv(Q, TILE), *x.stride(),
-            *dy.stride(), *dt.stride(), *dtA.stride(), *B.stride(),
-            *C.stride(), *splits, _cdiv(P * N, STATE_BLOCK))
+    vals = (b, S, H, P, N, Q, S // Q, *x.stride()[:2], *dy.stride()[:2],
+            *dt.stride(), *dtA.stride(), *B.stride()[:2], *C.stride()[:2],
+            *splits, _cdiv(P * N, STATE_BLOCK))
     assert len(vals) == N_DIMS
     big = max(b * S * H * P, b * H * S // Q * P * N,
-              (max(splits[0], splits[2]) + 1) * b * S * max(Q, N), *vals)
+              max(splits[0], 1) * b * S * Q, 2 * (splits[2] + 1) * b * S * N,
+              *vals)
     if big >= 2 ** 31:
         raise ValueError(f"ssd: {big} elements or a stride over int32")
     return (ctypes.c_int * N_DIMS)(*vals)
@@ -274,6 +303,7 @@ def _fwd_cuda(x, dtA, dt, B, C, init, Q: int, stream: int, lib=None):
     """The forward's 5 launches on `stream`: (y, final, A, the state
     entering each chunk)."""
     lib = _lib() if lib is None else lib
+    x, B, C = _rows(x), _along(B), _along(C)
     b, S, H, P = x.shape
     N, nc = B.shape[-1], S // Q
     new = lambda *shape: torch.empty(shape, dtype=F32, device=x.device)
@@ -283,31 +313,37 @@ def _fwd_cuda(x, dtA, dt, B, C, init, Q: int, stream: int, lib=None):
         _dims(x, x, dt, dtA, B, C, Q), *map(_ptr, (
             x, dtA, dt, B, C, init, A, G, st, final, y)), stream)
     _build.check_cuda(lib, err, "ssd forward launch")
-    ssd.launches += 5
+    ssd.launches += FWD_LAUNCHES
     return y, final, A, st
 
 
 def _bwd_cuda(x, dt, B, C, A, prev, final, y, dy, dfinal, Q: int,
               stream: int, sms: int, lib=None):
-    """The backward's 10 launches on `stream` (`sms` SMs): (dx, d(dtA),
+    """The backward's 9 launches on `stream` (`sms` SMs): (dx, d(dtA),
     d(dt), dB, dC, d(initial state))."""
     lib = _lib() if lib is None else lib
+    x, dy, B, C = _rows(x), _rows(dy), _along(B), _along(C)
     b, S, H, P = x.shape
-    N, nc, nt = B.shape[-1], S // Q, _cdiv(Q, TILE)
-    target = SPLIT_BLOCKS_PER_SM * sms
-    hs, hps = _split(target, b * nc * nt * (nt + 1) // 2, H)
-    ks, kps = _split(target, b * nc * nt * _cdiv(N, TILE), H)
+    N, nc = B.shape[-1], S // Q
+    hs, hps = _split(DCB_BLOCKS_PER_SM * sms, b * nc * _dcb_tiles(Q), H,
+                     MAX_SPLIT_HEADS_DCB)
+    # dB's and dC's tiles take one more part each: dG's
+    tiles = 2 * b * nc * _cdiv(Q, DBC_ROWS) * _cdiv(N, DBC_COLS)
+    ks, kps = _split(DBC_BLOCKS_PER_SM * sms - tiles, tiles, H)
     new = lambda *shape: torch.empty(shape, dtype=F32, device=x.device)
     scratch = (new(b, nc, Q, Q), new(b, nc, H, P, N), new(hs, b, nc, Q, Q),
-               new(ks + 1, b, nc, Q, N))
+               new(2, ks + 1, b, nc, Q, N))
     dx, ddtA, ddt = new(b, S, H, P), new(b, S, H), new(b, S, H)
     dB, dC, dinit = new(b, S, N), new(b, S, N), new(b, H, P, N)
+    # d(dt) and dA in parts, one per 64-wide p tile of du
+    ntp = _cdiv(P, DX_COLS)
+    parts = (ddtA, ddt) if ntp == 1 else (new(ntp, b, S, H), new(ntp, b, S, H))
     err = lib.repro_ssd_bwd(
         _dims(x, dy, dt, dt, B, C, Q, (hs, hps, ks, kps)), *map(_ptr, (
-            x, dt, B, C, A, prev, final, y, dy, dfinal, *scratch, dx, ddtA,
-            ddt, dB, dC, dinit)), stream)
+            x, dt, B, C, A, prev, final, y, dy, dfinal, *scratch, *parts, dx,
+            ddtA, ddt, dB, dC, dinit)), stream)
     _build.check_cuda(lib, err, "ssd backward launch")
-    ssd.launches += 10
+    ssd.launches += BWD_LAUNCHES
     return dx, ddtA, ddt, dB, dC, dinit
 
 

@@ -6,11 +6,16 @@ another, a block's threads as std::threads that meet at a std::barrier in
 `__syncthreads`, `__shared__` variables are function statics (one block at
 a time shares them), and `kernel<<<grid, block, smem, stream>>>(args)` is
 rewritten into a call of `stub_launch`. The source uses no warp intrinsics
-for that reason. The C entry points are then driven through `ssd.py`'s own
-wrappers (`_fwd_cuda`, `_bwd_cuda`) with CPU tensors, so the kernels'
-indexing, masking, tiling, head splits and shared-memory staging are
-checked on every run; only the card can check speed, registers and what
-nvcc itself refuses (`tests/test_torch_ssd.py`, chip_smoke's `ssd` phase).
+for that reason. The asynchronous copies (`__pipeline_memcpy_async`) are
+held back per thread until a `__pipeline_wait_prior` lets their group
+land, as late as the card may land them, so a slab read before its wait
+reads stale data here; a copy of another size than 4, 8 or 16 bytes, or
+from or to an address not aligned to its size, counts as a fault. The C
+entry points are then driven through `ssd.py`'s own wrappers
+(`_fwd_cuda`, `_bwd_cuda`) with CPU tensors, so the kernels' indexing,
+masking, tiling, head splits and shared-memory staging are checked on
+every run; only the card can check speed, registers and what nvcc itself
+refuses (`tests/test_torch_ssd.py`, chip_smoke's `ssd` phase).
 """
 import ctypes
 import re
@@ -27,26 +32,53 @@ from repro_torch.models import mamba2 as M  # noqa: E402
 
 STUB = r"""
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
+#include <cstdint>
 #include <cstring>
+#include <deque>
 #include <thread>
 #include <vector>
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-struct float4 { float x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline std::barrier<>* stub_barrier;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
 #define __align__(n) alignas(n)
 inline void __syncthreads() { stub_barrier->arrive_and_wait(); }
+// asynchronous copies: held per thread until a wait lets their group land
+struct stub_copy { void* d; const void* s; size_t n; };
+inline thread_local std::vector<stub_copy> stub_open;
+inline thread_local std::deque<std::vector<stub_copy>> stub_groups;
+inline std::atomic<int> stub_fault_count{0};
+extern "C" int stub_faults() { return stub_fault_count.exchange(0); }
+inline void __pipeline_memcpy_async(void* d, const void* s, size_t n,
+                                    size_t zfill = 0) {
+  if ((n != 4 && n != 8 && n != 16) || zfill ||
+      (reinterpret_cast<uintptr_t>(d) | reinterpret_cast<uintptr_t>(s)) % n)
+    ++stub_fault_count;
+  stub_open.push_back({d, s, n});
+}
+inline void __pipeline_commit() {
+  stub_groups.push_back(std::move(stub_open));
+  stub_open.clear();
+}
+inline void __pipeline_wait_prior(size_t n) {
+  while (stub_groups.size() > n) {
+    for (const auto& c : stub_groups.front()) std::memcpy(c.d, c.s, c.n);
+    stub_groups.pop_front();
+  }
+}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 constexpr int cudaErrorInvalidValue = 1;
@@ -68,6 +100,13 @@ void stub_launch(dim3 g, dim3 b, F f) {
           for (unsigned x = 0; x < g.x; ++x) {
             blockIdx = dim3(x, y, z);
             f();
+            // a block's copies have all landed when it ends
+            if (!stub_open.empty() || !stub_groups.empty()) {
+              __pipeline_commit();
+              for (const auto& gr : stub_groups)
+                if (!gr.empty()) ++stub_fault_count;
+              stub_groups.clear();
+            }
             bar.arrive_and_wait();
           }
     });
@@ -101,6 +140,7 @@ def _top_level_split(text: str) -> list[str]:
 def for_cpu(src: str) -> str:
     """csrc/ssd.cu with the stand-in header and every launch rewritten."""
     src = src.replace("#include <cuda_runtime.h>", '#include "stub.h"')
+    src = src.replace("#include <cuda_pipeline.h>", "")
     out, i = "", 0
     while (j := src.find("<<<", i)) >= 0:
         k = j
@@ -137,7 +177,8 @@ def lib(tmp_path_factory):
                     f"-I{d}", "-o", str(so), str(d / "ssd.cpp")],
                    check=True, capture_output=True, timeout=300)
     out = ctypes.CDLL(str(so))
-    for fn, n_ptrs in ((out.repro_ssd_fwd, 12), (out.repro_ssd_bwd, 21)):
+    out.stub_faults.restype = ctypes.c_int
+    for fn, n_ptrs in ((out.repro_ssd_fwd, 12), (out.repro_ssd_bwd, 23)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.POINTER(ctypes.c_int)] + \
             [ctypes.c_void_p] * n_ptrs
@@ -149,37 +190,57 @@ def _rel(a, b):
             / b.double().norm().clamp_min(1e-30)).item()
 
 
-# (b, S, H, P, N, chunk, initial state, SMs): several chunks with partial
-# 64-wide tiles, a ragged chunk (Q = S, no multiple of 16), P and N wider
-# than one tile, and 20 heads on one SM, so the head splits hold 16 and 4
-CASES = [(2, 96, 3, 8, 4, 32, True, 132), (1, 64, 2, 32, 16, 64, False, 132),
-         (1, 30, 2, 8, 16, 30, False, 132),
-         (1, 200, 2, 72, 70, 100, True, 132),
-         (1, 64, 20, 8, 4, 32, True, 1)]
+# (b, S, H, P, N, chunk, initial state, SMs, x's layout): several chunks
+# with partial tiles, a ragged chunk (Q = S, no multiple of 16), P and N
+# wider than one tile and no multiple of a slab, and 20 heads on one SM, so
+# the head splits hold 7, 7 and 6 (dG) and 16 and 4 (dB, dC); then Q 160
+# (a second 128-row tile, ragged, below the first, and three 64-wide dG
+# tiles), x's storage one element off 16 bytes (4-byte copies throughout)
+# and x laid out along h, which the wrapper copies. x's layout: "rows", a
+# view of rows 3.. of a longer sequence; "shift", storage one element in;
+# "h", a transposed view
+CASES = [(2, 96, 3, 8, 4, 32, True, 132, "rows"),
+         (1, 64, 2, 32, 16, 64, False, 132, "rows"),
+         (1, 30, 2, 8, 16, 30, False, 132, "rows"),
+         (1, 200, 2, 72, 70, 100, True, 132, "rows"),
+         (1, 64, 20, 8, 4, 32, True, 1, "rows"),
+         (1, 320, 3, 16, 8, 160, True, 132, "rows"),
+         (2, 64, 3, 8, 12, 64, True, 2, "shift"),
+         (1, 32, 2, 8, 4, 32, False, 132, "h")]
+
+
+def _x(rn, b, S, H, P, layout):
+    if layout == "rows":
+        return rn(b, S + 3, H, P)[:, 3:]
+    if layout == "shift":
+        return rn(b * S * H * P + 1)[1:].view(b, S, H, P)
+    return rn(b, S, P, H).transpose(2, 3)
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_source_matches_plain_versions(lib, case):
     """y, the final state, A, the states entering each chunk and every
-    gradient against the plain versions, with x given through a strided
-    view. Relative L2 1e-5: fp32 sums in another order (tiles, splits,
-    block scans); the largest reading was 3.3e-6 (a final state)."""
-    b, S, H, P, N, chunk, initial, sms = case
+    gradient against the plain versions, x given through a view. Relative
+    L2 1e-5: fp32 sums in another order (tiles, splits, block scans); the
+    largest reading was 3.3e-6 (a final state). No copy faulted."""
+    b, S, H, P, N, chunk, initial, sms, layout = case
     Q = min(chunk, S)
     g = torch.Generator().manual_seed(0)
     rn = lambda *s: torch.randn(s, generator=g)
     dt = torch.nn.functional.softplus(rn(b, S, H) - 1.0)
     A = -torch.exp(rn(H) * 0.5)
-    ins = [rn(b, S + 3, H, P)[:, 3:], dt * A, dt, rn(b, S, N), rn(b, S, N),
+    ins = [_x(rn, b, S, H, P, layout), dt * A, dt, rn(b, S, N), rn(b, S, N),
            rn(b, H, P, N) if initial else None]
     dy, dfin = rn(b, S, H, P), rn(b, H, P, N)
     fwd = K._fwd_cuda(*ins, Q, 0, lib=lib)
+    assert lib.stub_faults() == 0
     want_fwd = K.ssd_fwd_plain(*ins, Q)
     for what, got, want in zip(("y", "final", "A", "prev"), fwd, want_fwd):
         assert _rel(got, want) < 1e-5, what
     y, fin, A_cum, prev = fwd
     grads = K._bwd_cuda(ins[0], ins[2], ins[3], ins[4], A_cum, prev, fin, y,
                         dy, dfin, Q, 0, sms, lib=lib)
+    assert lib.stub_faults() == 0
     py, pfin, pA, pprev = want_fwd
     want = K.ssd_bwd_plain(ins[0], ins[2], ins[3], ins[4], pA, pprev, pfin,
                            py, dy, dfin, Q)
